@@ -21,7 +21,7 @@ test-fast:
 	$(PYTHON) -m pytest tests/test_core_types.py tests/test_solvers.py \
 	  tests/test_rfmip_nn.py -q
 
-# headline benchmark on the default (TPU) backend; prints one JSON line
+# headline benchmark on one GPU; prints the card and one JSON line
 bench:
 	$(PYTHON) bench.py
 

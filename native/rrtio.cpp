@@ -3,7 +3,7 @@
 // The reference's runtime around its compute kernels is native (Fortran):
 // netCDF I/O helpers (mo_simple_netcdf.F90, easy_netcdf.F90) and an
 // OpenMP-threaded block loop staging inputs for the kernels
-// (rrtmgp_rfmip_lw.F90:364-446). This library is the TPU framework's
+// (rrtmgp_rfmip_lw.F90:364-446). This library is this framework's
 // equivalent: a dependency-free classic-netCDF (CDF-1/CDF-2) reader/writer
 // and multithreaded NN-input feature packing (the host side of
 // compute_nn_inputs: log/quarter-root power scalings + min-max

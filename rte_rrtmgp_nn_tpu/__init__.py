@@ -1,11 +1,11 @@
-"""rte_rrtmgp_nn_tpu: a TPU-native (JAX/XLA/Pallas) radiative-transfer
-framework with the capabilities of RTE+RRTMGP-NN.
+"""rte_rrtmgp_nn_tpu: a JAX/XLA radiative-transfer framework with the
+capabilities of RTE+RRTMGP-NN, run on NVIDIA GPUs.
 
 Layers (bottom-up), mirroring the reference's structure (SURVEY.md section 1):
   config/constants      runtime flags, physical constants
   spectral/optical_props/gas_concs/sources/fluxes   core data model
   ops/                  compute kernels: LW/SW solvers, adding, scans,
-                        gas-optics kernels, Pallas fused MLP
+                        gas-optics kernels
   gasoptics/            k-distribution LUT gas optics + NN gas optics
   models/               NN model format (reference-compatible netCDF)
   extensions/           cloud optics, McICA sampling, heating rates, BCs

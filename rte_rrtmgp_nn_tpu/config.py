@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU-native RTE+RRTMGP-NN framework.
+"""Runtime configuration for the JAX RTE+RRTMGP-NN framework.
 
 Mirrors the capabilities of the reference's runtime flag module
 (``rte/mo_rte_rrtmgp_config.F90:23-40``): extent checking, value checking,
@@ -17,7 +17,14 @@ from __future__ import annotations
 import dataclasses
 from contextlib import contextmanager
 
+import jax
 import jax.numpy as jnp
+
+# Precision of every matrix product in the package (NN gas-optics GEMMs
+# and any other dot). A fixed choice, not a knob: on GPUs the float32
+# default is TF32 (about 10 mantissa bits), and the NN output goes through
+# (ystd*y + ymean)**8, so a relative operand error e becomes ~8e in tau.
+MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass
@@ -42,17 +49,6 @@ class RTEConfig:
     # Compute the surface-temperature Jacobian of upward flux
     # (reference compute_Jac, mo_rte_rrtmgp_config.F90:28).
     compute_jac: bool = False
-    # Route the broadband LW no-scat solve through the hand-scheduled
-    # Pallas kernel (ops/pallas/lw_solver.py). Measured ~10-15% faster than
-    # the fused XLA scan on TPU at RFMIP scale, but the solver is <2% of
-    # the LW pipeline; off by default, flip on for solver-dominated runs.
-    use_pallas_lw_solver: bool = False
-    # Use the single-kernel fused pipelines (ops/pallas/lw_megakernel
-    # mega4 / sw_megakernel) in the clear-sky drivers. None = auto: on for
-    # the TPU backend (measured LW 2.7/44.6 ms vs staged 3.7/89.3 at
-    # 1800/57.6k cols, SW 2.65/50.1 vs 3.64/85.9 -- docs/PERFORMANCE.md),
-    # off elsewhere (interpret mode is orders of magnitude slower than XLA).
-    use_megakernel: bool | None = None
 
     @property
     def eps(self) -> float:
@@ -72,45 +68,6 @@ class RTEConfig:
 
 
 config = RTEConfig()
-
-
-def megakernel_model_ok(models) -> bool:
-    """The fused Pallas megakernels hardcode the shipped NN architecture:
-    exactly three dense layers, softsign hidden activations, linear output
-    (ops/pallas/lw_megakernel.py ``_mega4_kernel``, sw_megakernel). Any
-    other depth or activation must take the staged cores, which apply the
-    model generically (models/network.py NNModel.apply)."""
-    return all(
-        len(m.weights) == 3 and len(m.biases) == 3
-        and tuple(a.lower() for a in m.activations)
-        == ("softsign", "softsign", "linear")
-        for m in models
-    )
-
-
-def resolve_use_megakernel(lw: bool = False, models=None) -> bool:
-    """Single source of truth for the fused-megakernel dispatch used by
-    every driver: config.use_megakernel (None = auto: TPU backend only),
-    forced OFF when a numerics flag the kernels hardcode is set --
-    ``fast_exponential`` affects every solver exponential (LW trans, SW
-    direct beam, SW two-stream; reference exp_fast scope,
-    mo_rte_solver_kernels.F90:237,520-526,1293,1311) so it forbids BOTH
-    megakernels; ``use_pade_source`` is an LW source form only -- and
-    forced OFF for any NN architecture the kernels don't hardcode
-    (``megakernel_model_ok``). The staged cores honor the flags; the
-    megakernels bake the exact exp + linear-in-tau source."""
-    import jax
-
-    use = config.use_megakernel
-    if use is None:
-        use = jax.default_backend() == "tpu"
-    if config.fast_exponential:
-        return False
-    if lw and config.use_pade_source:
-        return False
-    if models is not None and not megakernel_model_ok(models):
-        return False
-    return bool(use)
 
 
 def set_checks(check_extents: bool | None = None, check_values: bool | None = None):

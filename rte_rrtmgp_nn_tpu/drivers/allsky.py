@@ -12,17 +12,20 @@ Gas optics here uses the NN path (the reference example uses the LUT path;
 its k-distribution file is not shipped). Reference smoke values from the
 LUT path (mean LW dn/up 144.14/269.76, SW dn/up 946.98/325.29;
 rrtmgp_allsky.F90:479,487) remain the comparison target at NN accuracy.
+
+The entry points take either file paths (the reference's Garand file and
+cloud-optics coefficient files) or in-memory inputs (a ``GarandAtmosphere``
+and a ``CloudOptics``, e.g. from ``drivers.seeded_inputs``), plus optional
+cloud fields replacing the idealized placement.
 """
 from __future__ import annotations
 
-import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import resolve_use_megakernel
 from ..fluxes import FluxesBroadband, reduce_broadband
 from ..gas_concs import GasConcs
 from ..gasoptics.nn_gas_optics import gas_optics_lw_nn, gas_optics_sw_nn
@@ -31,21 +34,10 @@ from ..models.network import NNModel
 from ..optical_props import OpticalProps1scl, OpticalProps2str, delta_scale, increment
 from ..rte import rte_lw, rte_sw
 from ..spectral import SpectralMapping
-from .allsky_io import GarandAtmosphere  # noqa: F401 (re-export)
+from .allsky_io import GarandAtmosphere
 from .allsky_io import read_garand
 from .rfmip import default_solar_source, resolve_solar_source
 from ..extensions.cloud_optics import CloudOptics, cloud_optics
-
-# Regime threshold for the all-sky LW megakernel (ncol below it takes the
-# staged core even when megakernels are on). Round-4 history: the staged
-# core won below ~2270 columns (3.16 vs 3.51 ms at 1800) UNTIL the trace
-# showed that loss was XLA mis-scheduling the 26-lane fused input into
-# per-lane tile-padded relayouts + a 13.3 ms concat; with the explicit
-# stack assembly (lw_clearsky_mega4 assembly="stack") the megakernel wins
-# every regime (2.03 vs 3.16 ms at 1800; 13.1 vs ~26 ms LW at 28.8k), so
-# the threshold is 0. The plumbing + tests stay: if a future kernel
-# change resurrects a small-batch staged win, measure and raise it.
-ALLSKY_LW_MEGA_MIN_NCOL = 0
 
 # Idealized cloud-placement thresholds (reference rrtmgp_allsky.F90:329-350).
 # Exported so the mixed-precision GCM packer can keep quantized play/tlay on
@@ -129,7 +121,7 @@ def _allsky_lw_core_lay_major(
     top_at_1,
 ):
     """Layer-major all-sky LW core: the cloud absorption tau is expanded
-    band->gpt (one-hot matmul) and folded into the gas tau BEFORE the
+    band->gpt (gather) and folded into the gas tau BEFORE the
     broadband solve, so the in-scan spectral reduction survives clouds
     (the generic path re-materializes gpt-resolved incremented props).
     Numerics identical to _allsky_lw_core (same increment formula:
@@ -229,214 +221,62 @@ def _allsky_sw_core_lay_major(
         flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)
 
 
-def canonicalize_allsky_inputs(
-    play, plev, tlay, tlev, lwp, iwp, rel, rei, gas_concs, top_at_1,
-    dtype=np.float32,
-):
-    """Host-side layout canonicalization for the megakernel cores: every
-    (ncol, nlay[+1]) field becomes (nlay[+1], ncol) top-at-0 contiguous
-    numpy, and every gas VMR is materialized to full lay-major 2-D. The
-    flips/transposes run ONCE in numpy so the jitted cores do ZERO layout
-    copies on device (~1 ms of the all-sky device time at 1800 cols)."""
-    def canon(a):
-        a = np.asarray(a, dtype)
-        if not top_at_1:
-            a = a[:, ::-1]
-        return np.ascontiguousarray(a.T)
-
-    ncol, nlay = np.asarray(play).shape
-    fields = tuple(canon(a) for a in (play, plev, tlay, tlev,
-                                      lwp, iwp, rel, rei))
-    concs_t = {
-        name: canon(gas_concs.get_vmr(name, ncol, nlay))
-        for name in gas_concs.concs
-    }
-    return fields, concs_t
+_allsky_lw_core_jit = jax.jit(
+    _allsky_lw_core,
+    static_argnames=("spectral", "top_at_1", "n_gauss_angles", "scan_mode"))
+_allsky_lw_core_lay_major_jit = jax.jit(
+    _allsky_lw_core_lay_major, static_argnames=("spectral", "top_at_1"))
+_allsky_sw_core_jit = jax.jit(
+    _allsky_sw_core, static_argnames=("spectral", "top_at_1", "scan_mode"))
+_allsky_sw_core_lay_major_jit = jax.jit(
+    _allsky_sw_core_lay_major, static_argnames=("spectral", "top_at_1"))
 
 
-def _allsky_lw_core_mega(
-    models, table, spectral, cloud_co,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
-    lwp_t, iwp_t, rel_t, rei_t, concs_t,
-    top_at_1, tile_c: int | None = None,
-):
-    """All-sky LW through the fused mega4 kernel: the band-resolved cloud
-    absorption tau rides nband extra input lanes and folds into the gas tau
-    in-kernel (lw_clearsky_mega4 cld_tau_band) -- no (nlay, ncol, ngpt)
-    staging at all. Inputs are CANONICAL lay-major top-at-0
-    (canonicalize_allsky_inputs); top_at_1 only flips the output fluxes
-    back to the caller's level order. Numerics match
-    _allsky_lw_core_lay_major (reference rrtmgp_allsky.F90 LW branch)."""
-    import numpy as np
-
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry_lay_major,
-    )
-    from ..ops.pallas.lw_megakernel import lw_clearsky_mega4, pick_tile_c
-
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    if tile_c is None:
-        # prefer a DIVIDING tile (r5s3: 0.732 @32 -> 0.702 @72 at 1800
-        # cols, bit-identical; 28.8k keeps 32)
-        tile_c = pick_tile_c(ncol, 32, (72, 48, 40, 24, 16, 8))
-    col_dry = get_col_dry_lay_major(
-        gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = compute_nn_inputs_split(
-        play_t, tlay_t, gas_desc, models[0], (), lay_major=True)
-    n2d = len(x2d)
-    w1 = models[0].weights[0]
-    w1a = w1[np.asarray(perm[:n2d])]
-    w1c = (w1[np.asarray(perm[n2d:])] if len(perm) > n2d
-           else jnp.zeros((1, w1.shape[1]), w1.dtype))
-    one_hot = jnp.asarray(
-        (spectral.gpt2band[None, :] == np.arange(spectral.nband)[:, None]),
-        x2d[0].dtype,
-    )
-    emis = spectral.expand(emis_band)
-    if cloud_co.is_lut:
-        # LUT cloud optics runs fully IN-KERNEL: 4 physical lanes instead
-        # of nband tau lanes, no XLA cloud stage at all. assembly="stack":
-        # XLA mis-schedules this 26-lane fused input into per-lane
-        # tile-padded relayouts + a 13.3 ms concat (round-4 trace, 28.8k
-        # cols; 35.9 -> ~13 ms with the explicit stack assembly).
-        from ..ops.pallas.lw_megakernel import cloud_lut_pack
-
-        cld_kw = dict(cld_fields=(lwp_t, iwp_t, rel_t, rei_t),
-                      cld_lut=cloud_lut_pack(cloud_co), assembly="stack")
-    else:  # Pade coefficients: band tau computed in XLA, folded in-kernel
-        cld = cloud_optics(cloud_co, lwp_t, iwp_t, rel_t, rei_t,
-                           as_2str=False)
-        cld_kw = dict(cld_tau_band=cld.tau)
-    up, dn = lw_clearsky_mega4(
-        models[0], x2d, const_feats, w1a, w1c, col_dry,
-        tlay_t, tlev_t, tsfc, table, one_hot, emis, tile_c=tile_c,
-        **cld_kw,
-    )
-    if not top_at_1:
-        up, dn = up[:, ::-1], dn[:, ::-1]
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
-
-
-def _allsky_sw_core_mega(
-    models, spectral, solar, cloud_co,
-    play_t, plev_t, tlay_t, mu0, sfc_alb_dir, sfc_alb_dif,
-    lwp_t, iwp_t, rel_t, rei_t, concs_t,
-    top_at_1, tile_c: int | None = None,
-    # 32..64 a wash at 28.8k since the 100 MiB vmem raise (chip probe r5:
-    # 18.90/18.90/18.76 ms; the old "48 OOMs" predated the limit raise);
-    # None prefers a DIVIDING tile (r5s3: 0.945 @32 -> 0.902 @40 at 1800)
-):
-    """All-sky SW through the fused megakernel: the three delta-scaled
-    cloud 2-stream products ride 3*nband extra lanes and combine with the
-    gas props in-kernel (sw_clearsky_megakernel cld_bands). Inputs are
-    CANONICAL lay-major top-at-0 (canonicalize_allsky_inputs). Numerics
-    match _allsky_sw_core_lay_major (rrtmgp_allsky.F90 SW branch);
-    adjudicated vs f64 truth on Garand: staged-f32 1.70e-3, mega-f32
-    1.76e-3 W/m2 max flux error -- the inter-path delta is f32 noise."""
-    import numpy as np
-
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry_lay_major,
-    )
-    from ..ops.pallas.lw_megakernel import pick_tile_c
-    from ..ops.pallas.sw_megakernel import sw_clearsky_megakernel
-
-    gd_t = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    if tile_c is None:
-        # VMEM-conservative candidates (3*nband cloud lanes); 40 measured
-        # best at 1800 (0.945 @32 -> 0.902), 32 kept where it divides
-        tile_c = pick_tile_c(ncol, 32, (40, 24, 16, 8))
-    col_dry_t = get_col_dry_lay_major(
-        gd_t.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = compute_nn_inputs_split(
-        play_t, tlay_t, gd_t, models[0], (), lay_major=True)
-
-    one_hot = jnp.asarray(
-        (spectral.gpt2band[None, :] == np.arange(spectral.nband)[:, None]),
-        x2d[0].dtype,
-    )
-    if cloud_co.is_lut:
-        # LUT cloud optics + delta-scale run fully IN-KERNEL (see LW)
-        from ..ops.pallas.lw_megakernel import cloud_lut_pack
-
-        cld_kw = dict(cld_fields=(lwp_t, iwp_t, rel_t, rei_t),
-                      cld_lut=cloud_lut_pack(cloud_co))
+def _allsky_inputs(atmosphere, cloud_optics_src, ncol, clouds):
+    """(GarandAtmosphere, CloudOptics, (lwp, iwp, rel, rei), top_at_1)
+    from paths or in-memory inputs; clouds default to make_clouds."""
+    if isinstance(atmosphere, str):
+        atm = read_garand(atmosphere, ncol)
     else:
-        cld = cloud_optics(cloud_co, lwp_t, iwp_t, rel_t, rei_t,
-                           as_2str=True)
-        cld = delta_scale(cld)
-        tauscat_c = cld.tau * cld.ssa
-        cld_kw = dict(
-            cld_bands=(cld.tau, tauscat_c, tauscat_c * cld.g))
-    toa_src = jnp.broadcast_to(solar[None, :], (ncol, spectral.ngpt))
-    alb_dir = spectral.expand(sfc_alb_dir)
-    alb_dif = spectral.expand(sfc_alb_dif)
-    up, dn, dn_dir = sw_clearsky_megakernel(
-        models[0], models[1], x2d, col_dry_t, mu0,
-        toa_src * mu0[:, None], alb_dir, alb_dif, tile_c=tile_c,
-        one_hot=one_hot, const_feats=const_feats, perm=perm, **cld_kw,
-    )
-    if not top_at_1:
-        up, dn, dn_dir = up[:, ::-1], dn[:, ::-1], dn_dir[:, ::-1]
-    return FluxesBroadband(
-        flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)
+        atm = atmosphere
+    if isinstance(cloud_optics_src, str):
+        co = load_cloud_optics_checked(cloud_optics_src)
+    else:
+        co = cloud_optics_src
+    if clouds is None:
+        clouds = make_clouds(atm.play, atm.tlay, co)
+    top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])
+    return atm, co, clouds, top_at_1
 
 
 def allsky_lw(
-    garand_path: str,
-    cloud_optics_path: str,
+    atmosphere: Union[str, GarandAtmosphere],
+    cloud_optics_src: Union[str, CloudOptics],
     models: Sequence[NNModel],
     ncol: int = 128,
     spectral: Optional[SpectralMapping] = None,
     n_gauss_angles: int = 1,
     scan_mode: str = "sequential",
     dtype=jnp.float32,
+    clouds=None,
 ) -> FluxesBroadband:
-    """Full all-sky LW run (reference rrtmgp_allsky LW branch)."""
-    spectral = spectral or lw_spectral_g128()
-    atm = read_garand(garand_path, ncol)
-    co = load_cloud_optics_checked(cloud_optics_path)
-    table = PlanckTable.compute(spectral.band_lims_wvn_array, dtype=dtype)
-    lwp, iwp, rel, rei = make_clouds(atm.play, atm.tlay, co)
+    """Full all-sky LW run (reference rrtmgp_allsky LW branch).
 
-    top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])
+    atmosphere: a Garand file path (tiled to ``ncol`` columns) or a
+    ``GarandAtmosphere`` (``ncol`` is then its own); cloud_optics_src: a
+    coefficient file path or a ``CloudOptics``; clouds: optional
+    (lwp, iwp, rel, rei), default the idealized ``make_clouds``."""
+    spectral = spectral or lw_spectral_g128()
+    atm, co, (lwp, iwp, rel, rei), top_at_1 = _allsky_inputs(
+        atmosphere, cloud_optics_src, ncol, clouds)
+    ncol = atm.ncol
+    table = PlanckTable.compute(spectral.band_lims_wvn_array, dtype=dtype)
     sfc_lev = -1 if top_at_1 else 0
     tsfc = atm.tlev[:, sfc_lev]
     emis = jnp.full((ncol, spectral.nband), 0.98, dtype)
 
-    if (n_gauss_angles == 1 and scan_mode == "sequential"
-            and ncol >= ALLSKY_LW_MEGA_MIN_NCOL
-            and resolve_use_megakernel(lw=True, models=models)
-            and len(models) == 1 and dtype == jnp.float32):
-        fields, concs_t = canonicalize_allsky_inputs(
-            atm.play, atm.plev, atm.tlay, atm.tlev, lwp, iwp, rel, rei,
-            atm.gas_concs, top_at_1)
-        fn = jax.jit(functools.partial(
-            _allsky_lw_core_mega, models, table, spectral, co,
-            top_at_1=top_at_1,
-        ))
-        play_t, plev_t, tlay_t, tlev_t, lwp_t, iwp_t, rel_t, rei_t = (
-            jnp.asarray(a, dtype) for a in fields)
-        return fn(play_t, plev_t, tlay_t, tlev_t,
-                  jnp.asarray(tsfc, dtype), emis,
-                  lwp_t, iwp_t, rel_t, rei_t,
-                  {k: jnp.asarray(v, dtype) for k, v in concs_t.items()})
-    if n_gauss_angles == 1 and scan_mode == "sequential":
-        fn = jax.jit(functools.partial(
-            _allsky_lw_core_lay_major, models, table, spectral, co,
-            top_at_1=top_at_1,
-        ))
-    else:
-        fn = jax.jit(functools.partial(
-            _allsky_lw_core, models, table, spectral, co,
-            top_at_1=top_at_1, n_gauss_angles=n_gauss_angles,
-            scan_mode=scan_mode,
-        ))
-    return fn(
+    args = (
+        list(models), table, spectral, co,
         jnp.asarray(atm.play, dtype), jnp.asarray(atm.plev, dtype),
         jnp.asarray(atm.tlay, dtype), jnp.asarray(atm.tlev, dtype),
         jnp.asarray(tsfc, dtype), emis,
@@ -444,11 +284,16 @@ def allsky_lw(
         jnp.asarray(rel, dtype), jnp.asarray(rei, dtype),
         {k: jnp.asarray(v, dtype) for k, v in atm.gas_concs.concs.items()},
     )
+    if n_gauss_angles == 1 and scan_mode == "sequential":
+        return _allsky_lw_core_lay_major_jit(*args, top_at_1=top_at_1)
+    return _allsky_lw_core_jit(*args, top_at_1=top_at_1,
+                               n_gauss_angles=n_gauss_angles,
+                               scan_mode=scan_mode)
 
 
 def allsky_sw(
-    garand_path: str,
-    cloud_optics_path: str,
+    atmosphere: Union[str, GarandAtmosphere],
+    cloud_optics_src: Union[str, CloudOptics],
     models: Sequence[NNModel],
     ncol: int = 128,
     spectral: Optional[SpectralMapping] = None,
@@ -456,54 +301,33 @@ def allsky_sw(
     solar_source: Optional[np.ndarray] = None,
     scan_mode: str = "sequential",
     dtype=jnp.float32,
+    clouds=None,
 ) -> FluxesBroadband:
-    """Full all-sky SW run (reference rrtmgp_allsky SW branch). A supplied
-    kdist's NRLSSI2 solar terms take precedence over the brightness-
-    temperature approximation (see rfmip.resolve_solar_source)."""
+    """Full all-sky SW run (reference rrtmgp_allsky SW branch); inputs as
+    for ``allsky_lw``. A supplied kdist's NRLSSI2 solar terms take
+    precedence over the brightness-temperature approximation (see
+    rfmip.resolve_solar_source)."""
     spectral = spectral or sw_spectral_g112()
-    atm = read_garand(garand_path, ncol)
-    co = load_cloud_optics_checked(cloud_optics_path)
+    atm, co, (lwp, iwp, rel, rei), top_at_1 = _allsky_inputs(
+        atmosphere, cloud_optics_src, ncol, clouds)
+    ncol = atm.ncol
     if solar_source is None:
         solar_source = resolve_solar_source(spectral, kdist)
     solar = jnp.asarray(solar_source, dtype)
-    lwp, iwp, rel, rei = make_clouds(atm.play, atm.tlay, co)
-
-    top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])
     mu0 = jnp.full((ncol,), 0.86, dtype)
     alb = jnp.full((ncol, spectral.nband), 0.06, dtype)
 
-    if (scan_mode == "sequential"
-            and resolve_use_megakernel(models=models)
-            and len(models) == 2 and dtype == jnp.float32):
-        fields, concs_t = canonicalize_allsky_inputs(
-            atm.play, atm.plev, atm.tlay, atm.tlev, lwp, iwp, rel, rei,
-            atm.gas_concs, top_at_1)
-        fn = jax.jit(functools.partial(
-            _allsky_sw_core_mega, models, spectral, solar, co,
-            top_at_1=top_at_1,
-        ))
-        play_t, plev_t, tlay_t, _, lwp_t, iwp_t, rel_t, rei_t = (
-            jnp.asarray(a, dtype) for a in fields)
-        return fn(play_t, plev_t, tlay_t, mu0, alb, alb,
-                  lwp_t, iwp_t, rel_t, rei_t,
-                  {k: jnp.asarray(v, dtype) for k, v in concs_t.items()})
-    if scan_mode == "sequential":
-        fn = jax.jit(functools.partial(
-            _allsky_sw_core_lay_major, models, spectral, solar, co,
-            top_at_1=top_at_1,
-        ))
-    else:
-        fn = jax.jit(functools.partial(
-            _allsky_sw_core, models, spectral, solar, co,
-            top_at_1=top_at_1, scan_mode=scan_mode,
-        ))
-    return fn(
+    args = (
+        list(models), spectral, solar, co,
         jnp.asarray(atm.play, dtype), jnp.asarray(atm.plev, dtype),
         jnp.asarray(atm.tlay, dtype), mu0, alb, alb,
         jnp.asarray(lwp, dtype), jnp.asarray(iwp, dtype),
         jnp.asarray(rel, dtype), jnp.asarray(rei, dtype),
         {k: jnp.asarray(v, dtype) for k, v in atm.gas_concs.concs.items()},
     )
+    if scan_mode == "sequential":
+        return _allsky_sw_core_lay_major_jit(*args, top_at_1=top_at_1)
+    return _allsky_sw_core_jit(*args, top_at_1=top_at_1, scan_mode=scan_mode)
 
 
 def load_cloud_optics_checked(path: str) -> CloudOptics:

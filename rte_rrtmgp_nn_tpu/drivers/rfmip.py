@@ -6,19 +6,20 @@ optics then the RTE solver; SW adds TSI renormalization of the TOA source
 (:407-427), night-column masking via sza >= 90 deg (:283-288, zeroed after
 the solve :455-459), and band-albedo expansion to g-points.
 
-TPU-first: one jitted function over the whole (sharded) column batch
-replaces the OpenMP block loop; blocks become shards of the column axis.
+Design: one jitted function over the whole (sharded) column batch replaces
+the OpenMP block loop; blocks become shards of the column axis. Each band
+has one staged core (NN gas optics -> Planck sources -> broadband sweeps),
+jitted once at module level with the models and tables as arguments, so
+repeated calls at one shape reuse the compiled program.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import config, resolve_use_megakernel
 from ..fluxes import FluxesBroadband
 from ..gas_concs import GasConcs
 from ..gasoptics.nn_gas_optics import gas_optics_lw_nn, gas_optics_sw_nn
@@ -100,271 +101,6 @@ def resolve_solar_source(
         band_total = float(np.sum(src[ks:ke]))
         out[s:e] = band_total * w[s:e] / np.sum(w[s:e])
     return out
-
-
-def canonicalize_rfmip_inputs(data: RFMIPData, dtype=np.float32):
-    """Host-side lay-major canonicalization for the megakernel cores:
-    (ncol, nlay[+1]) atmosphere fields become (nlay[+1], ncol) top-at-0
-    contiguous numpy, and per-layer (1-D) gas profiles are materialized to
-    full lay-major 2-D (scalars stay scalar). The flips/transposes run
-    ONCE in numpy so the jitted cores do ZERO layout copies on device.
-    Returns (play_t, plev_t, tlay_t, tlev_t, concs_t)."""
-    def canon(a):
-        a = np.asarray(a, dtype)
-        if not data.top_at_1:
-            a = a[:, ::-1]
-        return np.ascontiguousarray(a.T)
-
-    concs_t = {}
-    for name, raw in data.gas_concs.concs.items():
-        r = np.asarray(raw, dtype)
-        if r.ndim == 0:
-            concs_t[name] = r
-        elif r.ndim == 1:  # per-layer profile
-            concs_t[name] = canon(np.broadcast_to(r[None, :],
-                                                  (data.ncol, r.shape[0])))
-        else:
-            concs_t[name] = canon(r)
-    return (canon(data.play), canon(data.plev), canon(data.tlay),
-            canon(data.tlev), concs_t)
-
-
-def _lw_core_mega4_canon(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
-    top_at_1: bool,
-    tile_c: int | None = None,  # None: 32 small batches, 64 large (measured)
-    sweep_stored: bool = False,
-):
-    """_lw_core_mega4 on CANONICAL lay-major top-at-0 inputs
-    (canonicalize_rfmip_inputs): the jitted core emits no flip/transpose
-    copies at all; top_at_1 only flips the output fluxes back. Numerics
-    identical to _lw_core_mega4 (same expressions, layout-only change)."""
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry_lay_major,
-    )
-    from ..ops.pallas.lw_megakernel import lw_clearsky_mega4
-
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    if tile_c is None:
-        # measured crossover (interp-cat kernel): 1800 cols 1.79 ms @32 vs
-        # 1.82 @64; 57.6k 20.56 @32 vs 20.04 @64. r5s3: prefer a tile that
-        # DIVIDES ncol (kills the fused-input ceil-pad copy; at 1800 cols
-        # tile 120 is 0.599 -> 0.540 ms, bit-identical -- pick_tile_c).
-        from ..ops.pallas.lw_megakernel import pick_tile_c
-        tile_c = pick_tile_c(ncol, 32 if ncol < 16384 else 64,
-                             (120, 96, 72, 64, 48, 40, 24, 16, 8))
-    col_dry = get_col_dry_lay_major(
-        gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = compute_nn_inputs_split(
-        play_t, tlay_t, gas_desc, models[0], (), lay_major=True)
-    n2d = len(x2d)
-    w1 = models[0].weights[0]
-    w1a = w1[np.asarray(perm[:n2d])]
-    w1c = (w1[np.asarray(perm[n2d:])] if len(perm) > n2d
-           else jnp.zeros((1, w1.shape[1]), w1.dtype))
-    one_hot = jnp.asarray(
-        (spectral.gpt2band[None, :] == np.arange(spectral.nband)[:, None]),
-        x2d[0].dtype,
-    )
-    emis = spectral.expand(sfc_emis_band)
-    up, dn = lw_clearsky_mega4(
-        models[0], x2d, const_feats, w1a, w1c, col_dry,
-        tlay_t, tlev_t, tsfc, planck_table, one_hot, emis, tile_c=tile_c,
-        sweep_stored=sweep_stored,
-    )
-    if not top_at_1:
-        up, dn = up[:, ::-1], dn[:, ::-1]
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
-
-
-def _lw_core_mega5_canon(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
-    top_at_1: bool,
-    tile_c: int = 128,
-    mxu_first: bool = False,
-):
-    """_lw_core_mega4_canon with the separate-raw-lane mega5 kernel: no
-    fused-input concat and no feature staging at all -- the jitted core's
-    only pre-kernel work is col_dry and the emissivity expand (see
-    ops/pallas/lw_megakernel.lw_clearsky_mega5)."""
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry_lay_major,
-    )
-    from ..ops.pallas.lw_megakernel import lw_clearsky_mega5
-
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    col_dry = get_col_dry_lay_major(
-        gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
-    lanes, const_feats, perm, tf_codes, scale_rows = compute_nn_inputs_split(
-        play_t, tlay_t, gas_desc, models[0], (), lay_major=True,
-        raw_lanes=True)
-    n2d = len(lanes)
-    if models[0].input_names[perm[0]] != "tlay":
-        raise ValueError("mega5 requires 'tlay' as the first 2-D lane "
-                         f"(got {models[0].input_names[perm[0]]!r})")
-    w1 = models[0].weights[0]
-    w1a = w1[np.asarray(perm[:n2d])]
-    w1c = (w1[np.asarray(perm[n2d:])] if len(perm) > n2d
-           else jnp.zeros((1, w1.shape[1]), w1.dtype))
-    one_hot = jnp.asarray(
-        (spectral.gpt2band[None, :] == np.arange(spectral.nband)[:, None]),
-        lanes[0].dtype,
-    )
-    emis = spectral.expand(sfc_emis_band)
-    up, dn = lw_clearsky_mega5(
-        models[0], lanes, tf_codes, scale_rows, const_feats, w1a, w1c,
-        col_dry, tlev_t, tsfc, planck_table, one_hot, emis, tile_c=tile_c,
-        mxu_first=mxu_first,
-    )
-    if not top_at_1:
-        up, dn = up[:, ::-1], dn[:, ::-1]
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
-
-
-def _sw_core_mega_canon(
-    models: Sequence[NNModel],
-    spectral: SpectralMapping,
-    solar_source,
-    play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t,
-    top_at_1: bool,
-    tile_c: int | None = None,  # None: 32 small batches, 64 large (measured)
-    sweep_stored: bool = False,
-):
-    """_sw_core_mega on CANONICAL lay-major top-at-0 inputs (see
-    canonicalize_rfmip_inputs / _lw_core_mega4_canon)."""
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry_lay_major,
-    )
-    from ..ops.pallas.sw_megakernel import sw_clearsky_megakernel
-
-    gd_t = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    if tile_c is None:
-        # measured crossover (lane-stack kernel): 1800 cols 2.27 ms @32 vs
-        # 2.34 @48; 57.6k 28.2 @32 vs 28.2 @64 vs 28.8 @48, 32.1 @128.
-        # r5s3: prefer a DIVIDING tile (SW @1800: 0.754 @48 -> 0.727 @72,
-        # bit-identical; 120 measured worse, excluded -- pick_tile_c).
-        from ..ops.pallas.lw_megakernel import pick_tile_c
-        tile_c = pick_tile_c(ncol, 32 if ncol < 16384 else 64,
-                             (72, 64, 48, 40, 24, 16, 8))
-    col_dry_t = get_col_dry_lay_major(
-        gd_t.get_vmr("h2o", nlay, ncol), plev_t)
-    # per-lane scaled 2-D features + ONE fused concat in the kernel
-    # wrapper: a pre-stacked 3-D nn_inputs costs ~13.5 ms of lane-major
-    # relayouts at 57.6k cols (round-4 trace, docs/PERFORMANCE.md)
-    x2d, const_feats, perm = compute_nn_inputs_split(
-        play_t, tlay_t, gd_t, models[0], (), lay_major=True)
-    toa_src = jnp.broadcast_to(solar_source[None, :], (ncol, spectral.ngpt))
-    toa_src = toa_src * (tsi / jnp.sum(toa_src, axis=-1))[:, None]
-    alb_gpt = sfc_alb[:, None] * jnp.ones_like(toa_src)
-    mu0_safe = jnp.where(usecol, mu0, 1.0)
-    up, dn, dn_dir = sw_clearsky_megakernel(
-        models[0], models[1], x2d, col_dry_t, mu0_safe,
-        toa_src * mu0_safe[:, None], alb_gpt, alb_gpt, tile_c=tile_c,
-        sweep_stored=sweep_stored, const_feats=const_feats, perm=perm,
-    )
-    if not top_at_1:
-        up, dn, dn_dir = up[:, ::-1], dn[:, ::-1], dn_dir[:, ::-1]
-    mask = usecol[:, None]
-    return FluxesBroadband(
-        flux_up=jnp.where(mask, up, 0.0),
-        flux_dn=jnp.where(mask, dn, 0.0),
-        flux_net=jnp.where(mask, dn - up, 0.0),
-        flux_dn_dir=jnp.where(mask, dn_dir, 0.0),
-    )
-
-
-def _conc_shard_spec(concs_t):
-    """PartitionSpecs for a canonical (lay-major) gas dict: 2-D profiles
-    split over 'col' on axis 1, scalars replicated."""
-    from jax.sharding import PartitionSpec as P
-
-    return {
-        k: (P(None, "col") if getattr(v, "ndim", 0) == 2 else P())
-        for k, v in concs_t.items()
-    }
-
-
-def lw_mega_core_sharded(mesh, models, planck_table, spectral, top_at_1,
-                         tile_c: int = 32):
-    """``_lw_core_mega4_canon`` wrapped in ``shard_map`` over the mesh's
-    'col' axis: every device runs the full fused Pallas megakernel on its
-    local column shard (columns are halo-free, so the hot path provably
-    contains no collective). This is how the megakernel era scales to a
-    multi-chip mesh -- GSPMD cannot partition an opaque ``pallas_call``,
-    so the SPMD boundary is drawn explicitly here.
-
-    Returns a jittable ``fn(play_t, plev_t, tlay_t, tlev_t, tsfc, emis,
-    concs_t) -> (flux_up, flux_dn)`` on canonical lay-major inputs
-    (``canonicalize_rfmip_inputs``); per-device column count must divide
-    into the inputs (pad with parallel.sharding.pad_to_multiple).
-    """
-    from jax.sharding import PartitionSpec as P
-
-    from ..parallel.shard_ops import shard_map
-
-    lay, col = P(None, "col"), P("col")
-
-    def body(play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t):
-        fb = _lw_core_mega4_canon(
-            models, planck_table, spectral,
-            play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t,
-            top_at_1=top_at_1, tile_c=tile_c,
-        )
-        return fb.flux_up, fb.flux_dn
-
-    def wrapped(play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t):
-        f = shard_map(
-            body, mesh=mesh,
-            in_specs=(lay, lay, lay, lay, col, col,
-                      _conc_shard_spec(concs_t)),
-            out_specs=(col, col), check_vma=False,
-        )
-        return f(play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t)
-
-    return wrapped
-
-
-def sw_mega_core_sharded(mesh, models, spectral, solar_source, top_at_1,
-                         tile_c: int | None = None):
-    """``_sw_core_mega_canon`` under shard_map over 'col' (see
-    lw_mega_core_sharded). Returns a jittable ``fn(play_t, plev_t, tlay_t,
-    sfc_alb, mu0, usecol, tsi, concs_t) -> (flux_up, flux_dn, flux_dn_dir)``."""
-    from jax.sharding import PartitionSpec as P
-
-    from ..parallel.shard_ops import shard_map
-
-    lay, col = P(None, "col"), P("col")
-
-    def body(play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t):
-        fb = _sw_core_mega_canon(
-            models, spectral, solar_source,
-            play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t,
-            top_at_1=top_at_1, tile_c=tile_c,
-        )
-        return fb.flux_up, fb.flux_dn, fb.flux_dn_dir
-
-    def wrapped(play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t):
-        f = shard_map(
-            body, mesh=mesh,
-            in_specs=(lay, lay, lay, col, col, col, col,
-                      _conc_shard_spec(concs_t)),
-            out_specs=(col, col, col), check_vma=False,
-        )
-        return f(play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t)
-
-    return wrapped
 
 
 def _lw_core(
@@ -456,155 +192,11 @@ def _lw_core_lay_major(
     return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
-def _lw_core_mega4(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play, plev, tlay, tlev, tsfc, sfc_emis_band, concs_dict,
-    top_at_1: bool,
-    tile_c: int | None = None,  # None: 32 small batches, 64 large (measured)
-    const_gas_names: tuple = (),
-):
-    """Thin-lane fully-fused LW core (ops/pallas/lw_megakernel.
-    lw_clearsky_mega4): the XLA staging is only the (n2d+4)-lane feature
-    stack + col_dry; Planck interpolation, missing-gas scenario refs, and
-    the whole solve run in-kernel. const_gas_names routes layer-constant
-    gases through a per-tile GEMM instead of lanes -- measured SLOWER and
-    numerically noisier (docs/PERFORMANCE.md), keep it empty."""
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry,
-    )
-    from ..ops.pallas.lw_megakernel import lw_clearsky_mega4
-
-    gas_desc = GasConcs(concs_dict)
-    ncol, nlay = play.shape
-    if tile_c is None:
-        from ..ops.pallas.lw_megakernel import pick_tile_c
-        tile_c = pick_tile_c(ncol, 32 if ncol < 16384 else 64,
-                             (120, 96, 72, 64, 48, 40, 24, 16, 8))
-
-    if not top_at_1:
-        play, tlay = play[:, ::-1], tlay[:, ::-1]
-        plev, tlev = plev[:, ::-1], tlev[:, ::-1]
-        gas_desc = GasConcs({
-            name: gas_desc.get_vmr(name, ncol, nlay)[:, ::-1]
-            for name in gas_desc.concs
-        })
-
-    col_dry = get_col_dry(gas_desc.get_vmr("h2o", ncol, nlay), plev).T
-    x2d, const_feats, perm = compute_nn_inputs_split(
-        play, tlay, gas_desc, models[0], const_gas_names)
-    n2d = len(x2d)
-    w1 = models[0].weights[0]
-    w1a = w1[np.asarray(perm[:n2d])]
-    if len(perm) > n2d:
-        w1c = w1[np.asarray(perm[n2d:])]
-    else:  # no const features: dummy zero lane + zero weight row
-        w1c = jnp.zeros((1, w1.shape[1]), w1.dtype)
-    one_hot = jnp.asarray(
-        (spectral.gpt2band[None, :] == np.arange(spectral.nband)[:, None]),
-        x2d[0].dtype,
-    )
-    emis = spectral.expand(sfc_emis_band)
-    up, dn = lw_clearsky_mega4(
-        models[0], x2d, const_feats, w1a, w1c, col_dry,
-        tlay.T, tlev.T, tsfc, planck_table, one_hot, emis, tile_c=tile_c,
-    )
-    if not top_at_1:
-        up, dn = up[:, ::-1], dn[:, ::-1]
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
-
-
-def _lw_core_mega5(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play, plev, tlay, tlev, tsfc, sfc_emis_band, concs_dict,
-    top_at_1: bool,
-    tile_c: int = 128,
-    mxu_first: bool = False,
-):
-    """Column-major front for the separate-raw-lane mega5 kernel (in-jit
-    transposes; see _lw_core_mega5_canon for the zero-copy canonical
-    path)."""
-    gas_desc = GasConcs(concs_dict)
-    ncol, nlay = play.shape
-    if not top_at_1:
-        play, tlay = play[:, ::-1], tlay[:, ::-1]
-        plev, tlev = plev[:, ::-1], tlev[:, ::-1]
-        concs_t = {
-            name: gas_desc.get_vmr(name, ncol, nlay)[:, ::-1].T
-            for name in gas_desc.concs
-        }
-    else:
-        concs_t = {
-            name: gas_desc.get_vmr(name, ncol, nlay).T
-            for name in gas_desc.concs
-        }
-    fb = _lw_core_mega5_canon(
-        models, planck_table, spectral, play.T, plev.T, tlay.T, tlev.T,
-        tsfc, sfc_emis_band, concs_t, top_at_1=True, tile_c=tile_c,
-        mxu_first=mxu_first,
-    )
-    if not top_at_1:
-        return FluxesBroadband(flux_up=fb.flux_up[:, ::-1],
-                               flux_dn=fb.flux_dn[:, ::-1],
-                               flux_net=fb.flux_net[:, ::-1])
-    return fb
-
-
-def _lw_core_prep(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play, plev, tlay, tlev, tsfc, sfc_emis_band, concs_dict,
-    top_at_1: bool,
-    tile_c: int = 32,
-):
-    """Pallas-prep LW core: one loop-free fused kernel produces exactly the
-    three layer-major fields (trans, src_dn, src_up) the broadband sweeps
-    consume, plus the surface source (ops/pallas/lw_megakernel.lw_prep_pallas)
-    -- tau, pfrac, and the g-point Planck sources never reach HBM. The
-    sequential sweeps stay as full-width XLA scans (lw_broadband_sweeps)."""
-    from ..gasoptics.nn_gas_optics import compute_nn_inputs, get_col_dry
-    from ..ops.lw_solver import lw_broadband_sweeps
-    from ..ops.pallas.lw_megakernel import lw_prep_pallas
-
-    gas_desc = GasConcs(concs_dict)
-    ncol, nlay = play.shape
-
-    if not top_at_1:
-        play, tlay = play[:, ::-1], tlay[:, ::-1]
-        plev, tlev = plev[:, ::-1], tlev[:, ::-1]
-        gas_desc = GasConcs({
-            name: gas_desc.get_vmr(name, ncol, nlay)[:, ::-1]
-            for name in gas_desc.concs
-        })
-
-    col_dry = get_col_dry(gas_desc.get_vmr("h2o", ncol, nlay), plev).T
-    gd_t = GasConcs({
-        name: gas_desc.get_vmr(name, ncol, nlay).T
-        for name in gas_desc.concs
-    })
-    x = compute_nn_inputs(play.T, tlay.T, gd_t, models[0])  # (nlay, ncol, nf)
-    one_hot = jnp.asarray(
-        (spectral.gpt2band[None, :] == np.arange(spectral.nband)[:, None]),
-        x.dtype,
-    )
-    trans, src_dn, src_up, sfc_src = lw_prep_pallas(
-        models[0], x, col_dry,
-        planck_table.interpolate(tlay.T),
-        planck_table.interpolate(tlev.T),
-        planck_table.interpolate(tsfc),
-        one_hot, tile_c=tile_c,
-    )
-    emis = spectral.expand(sfc_emis_band)
-    sol = lw_broadband_sweeps(trans, src_dn, src_up, emis, sfc_src)
-    up, dn = sol.flux_up, sol.flux_dn
-    if not top_at_1:
-        up, dn = up[:, ::-1], dn[:, ::-1]
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+_lw_core_jit = jax.jit(
+    _lw_core, static_argnames=("spectral", "top_at_1", "n_gauss_angles",
+                               "scan_mode"))
+_lw_core_lay_major_jit = jax.jit(
+    _lw_core_lay_major, static_argnames=("spectral", "top_at_1"))
 
 
 def rfmip_clear_sky_lw(
@@ -619,49 +211,17 @@ def rfmip_clear_sky_lw(
     """End-to-end LW clear-sky flux computation with NN gas optics
     (reference rrtmgp_rfmip_lw.F90 main loop, :368-446).
 
-    The default single-angle configuration runs the fused mega4 Pallas
-    core on TPU (config.use_megakernel; ~10% faster at RFMIP scale,
-    parity ~1e-4 W/m2) and the staged layer-major core elsewhere;
-    multi-angle or parallel-scan requests use the general column-major
-    core."""
+    The single-angle sequential configuration runs the staged layer-major
+    core; multi-angle or parallel-scan requests use the general
+    column-major core."""
     spectral = spectral or lw_spectral_g128()
     planck_table = planck_table or PlanckTable.compute(spectral.band_lims_wvn_array, dtype=dtype)
 
     sfc_emis_band = jnp.broadcast_to(
         jnp.asarray(data.sfc_emis, dtype)[:, None], (data.ncol, spectral.nband)
     )
-    if (n_gauss_angles == 1 and scan_mode == "sequential"
-            and resolve_use_megakernel(lw=True, models=models)
-            and len(models) == 1 and dtype == jnp.float32):
-        # const_gas_names stays empty: routing the layer-constant gases
-        # through a separate per-tile GEMM measured SLOWER (69.5 vs
-        # 44.6 ms at 57.6k cols) and numerically noisier (bf16 grouping)
-        # than carrying them as lanes -- docs/PERFORMANCE.md. Missing
-        # gases (scenario refs) still use the const block.
-        play_t, plev_t, tlay_t, tlev_t, concs_t = canonicalize_rfmip_inputs(
-            data)
-        core = functools.partial(
-            _lw_core_mega4_canon, models, planck_table, spectral,
-            top_at_1=data.top_at_1, tile_c=None,
-        )
-        return jax.jit(core)(
-            jnp.asarray(play_t, dtype), jnp.asarray(plev_t, dtype),
-            jnp.asarray(tlay_t, dtype), jnp.asarray(tlev_t, dtype),
-            jnp.asarray(data.tsfc, dtype), sfc_emis_band,
-            {k: jnp.asarray(v, dtype) for k, v in concs_t.items()},
-        )
-    if n_gauss_angles == 1 and scan_mode == "sequential":
-        core = functools.partial(
-            _lw_core_lay_major, models, planck_table, spectral,
-            top_at_1=data.top_at_1,
-        )
-    else:
-        core = functools.partial(
-            _lw_core, models, planck_table, spectral,
-            top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles, scan_mode=scan_mode,
-        )
-    jitted = jax.jit(core)
-    return jitted(
+    args = (
+        list(models), planck_table, spectral,
         jnp.asarray(data.play, dtype),
         jnp.asarray(data.plev, dtype),
         jnp.asarray(data.tlay, dtype),
@@ -670,6 +230,10 @@ def rfmip_clear_sky_lw(
         sfc_emis_band,
         {k: jnp.asarray(v, dtype) for k, v in data.gas_concs.concs.items()},
     )
+    if n_gauss_angles == 1 and scan_mode == "sequential":
+        return _lw_core_lay_major_jit(*args, top_at_1=data.top_at_1)
+    return _lw_core_jit(*args, top_at_1=data.top_at_1,
+                        n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
 
 
 def _sw_core(
@@ -761,69 +325,10 @@ def _sw_core_lay_major(
     )
 
 
-def _sw_core_mega(
-    models: Sequence[NNModel],
-    spectral: SpectralMapping,
-    solar_source,
-    play, plev, tlay, sfc_alb, mu0, usecol, tsi, concs_dict,
-    top_at_1: bool,
-    tile_c: int | None = None,
-    sweep_stored: bool = False,
-):
-    """Fully-fused SW core (ops/pallas/sw_megakernel.sw_clearsky_megakernel):
-    both NN nets, the PIFM two-stream coefficients, the direct beam, and
-    both adding sweeps in one Pallas kernel; only the feature pack and TSI
-    renormalization stay in XLA. Numerics match _sw_core_lay_major to f32
-    accumulation order."""
-    from ..gasoptics.nn_gas_optics import (
-        compute_nn_inputs_split,
-        get_col_dry,
-    )
-    from ..ops.pallas.lw_megakernel import pick_tile_c
-    from ..ops.pallas.sw_megakernel import sw_clearsky_megakernel
-
-    gas_desc = GasConcs(concs_dict)
-    ncol, nlay = play.shape
-    if tile_c is None:
-        tile_c = pick_tile_c(ncol, 32 if ncol < 16384 else 64,
-                             (72, 64, 48, 40, 24, 16, 8))
-
-    if not top_at_1:
-        play, tlay, plev = play[:, ::-1], tlay[:, ::-1], plev[:, ::-1]
-
-    h2o = gas_desc.get_vmr("h2o", ncol, nlay)
-    if not top_at_1:
-        h2o = h2o[:, ::-1]
-    col_dry_t = get_col_dry(h2o, plev).T
-
-    concs_flip = {}
-    for name in gas_desc.concs:
-        full = gas_desc.get_vmr(name, ncol, nlay)
-        if not top_at_1:
-            full = full[:, ::-1]
-        concs_flip[name] = full
-    gd_f = GasConcs(concs_flip)
-
-    x2d, const_feats, perm = compute_nn_inputs_split(
-        play, tlay, gd_f, models[0], ())
-    toa_src = jnp.broadcast_to(solar_source[None, :], (ncol, spectral.ngpt))
-    toa_src = toa_src * (tsi / jnp.sum(toa_src, axis=-1))[:, None]
-    alb_gpt = sfc_alb[:, None] * jnp.ones_like(toa_src)
-    mu0_safe = jnp.where(usecol, mu0, 1.0)
-    up, dn, dn_dir = sw_clearsky_megakernel(
-        models[0], models[1], x2d, col_dry_t, mu0_safe,
-        toa_src * mu0_safe[:, None], alb_gpt, alb_gpt, tile_c=tile_c,
-        sweep_stored=sweep_stored, const_feats=const_feats, perm=perm,
-    )
-    if not top_at_1:
-        up, dn, dn_dir = up[:, ::-1], dn[:, ::-1], dn_dir[:, ::-1]
-    mask = usecol[:, None]
-    return FluxesBroadband(
-        flux_up=jnp.where(mask, up, 0.0),
-        flux_dn=jnp.where(mask, dn, 0.0),
-        flux_net=jnp.where(mask, dn - up, 0.0),
-        flux_dn_dir=jnp.where(mask, dn_dir, 0.0),
-    )
+_sw_core_jit = jax.jit(
+    _sw_core, static_argnames=("spectral", "top_at_1", "scan_mode"))
+_sw_core_lay_major_jit = jax.jit(
+    _sw_core_lay_major, static_argnames=("spectral", "top_at_1"))
 
 
 def rfmip_clear_sky_sw(
@@ -838,11 +343,7 @@ def rfmip_clear_sky_sw(
     """End-to-end SW clear-sky flux computation with NN gas optics
     (reference rrtmgp_rfmip_sw.F90). When a k-distribution carrying NRLSSI2
     solar terms is supplied, the TOA source uses it (resolve_solar_source);
-    otherwise the brightness-temperature approximation.
-
-    On TPU the default sequential configuration runs the fused SW
-    megakernel (config.use_megakernel; 27% faster at RFMIP scale, 42% at
-    57k columns -- docs/PERFORMANCE.md)."""
+    otherwise the brightness-temperature approximation."""
     spectral = spectral or sw_spectral_g112()
     if solar_source is None:
         solar_source = resolve_solar_source(spectral, kdist)
@@ -850,35 +351,8 @@ def rfmip_clear_sky_sw(
     mu0 = np.cos(np.deg2rad(data.sza))
     usecol = data.sza < 90.0 - 0.5 * np.finfo(np.float32).eps  # day columns
 
-    if (scan_mode == "sequential"
-            and resolve_use_megakernel(models=models)
-            and len(models) == 2 and dtype == jnp.float32):
-        play_t, plev_t, tlay_t, _, concs_t = canonicalize_rfmip_inputs(data)
-        core = functools.partial(
-            _sw_core_mega_canon, models, spectral,
-            jnp.asarray(solar_source, dtype),
-            top_at_1=data.top_at_1,
-        )
-        return jax.jit(core)(
-            jnp.asarray(play_t, dtype), jnp.asarray(plev_t, dtype),
-            jnp.asarray(tlay_t, dtype),
-            jnp.asarray(data.sfc_alb, dtype),
-            jnp.asarray(mu0, dtype), jnp.asarray(usecol),
-            jnp.asarray(data.tsi, dtype),
-            {k: jnp.asarray(v, dtype) for k, v in concs_t.items()},
-        )
-    if scan_mode == "sequential":
-        core = functools.partial(
-            _sw_core_lay_major, models, spectral, jnp.asarray(solar_source, dtype),
-            top_at_1=data.top_at_1,
-        )
-    else:
-        core = functools.partial(
-            _sw_core, models, spectral, jnp.asarray(solar_source, dtype),
-            top_at_1=data.top_at_1, scan_mode=scan_mode,
-        )
-    jitted = jax.jit(core)
-    return jitted(
+    args = (
+        list(models), spectral, jnp.asarray(solar_source, dtype),
         jnp.asarray(data.play, dtype),
         jnp.asarray(data.plev, dtype),
         jnp.asarray(data.tlay, dtype),
@@ -888,3 +362,70 @@ def rfmip_clear_sky_sw(
         jnp.asarray(data.tsi, dtype),
         {k: jnp.asarray(v, dtype) for k, v in data.gas_concs.concs.items()},
     )
+    if scan_mode == "sequential":
+        return _sw_core_lay_major_jit(*args, top_at_1=data.top_at_1)
+    return _sw_core_jit(*args, top_at_1=data.top_at_1, scan_mode=scan_mode)
+
+
+def _conc_specs(concs):
+    """shard_map specs for a gas dict: (ncol, nlay) fields split over
+    'col', scalars and per-layer profiles replicated."""
+    from jax.sharding import PartitionSpec as P
+
+    return {k: (P("col") if getattr(v, "ndim", 0) == 2 else P())
+            for k, v in concs.items()}
+
+
+def lw_core_sharded(mesh, models, planck_table, spectral, top_at_1):
+    """The staged LW core under ``shard_map`` over the mesh's 'col' axis:
+    each device solves its own column shard (columns are halo-free, so the
+    program holds no collective). Returns a jittable ``fn(play, plev,
+    tlay, tlev, tsfc, emis_band, concs) -> (flux_up, flux_dn)`` on
+    column-leading inputs whose column count the 'col' axis divides
+    (pad with parallel.sharding.pad_to_multiple)."""
+    from jax.sharding import PartitionSpec as P
+
+    from ..parallel.shard_ops import shard_map
+
+    col = P("col")
+
+    def body(play, plev, tlay, tlev, tsfc, emis, concs):
+        fb = _lw_core_lay_major(models, planck_table, spectral, play, plev,
+                                tlay, tlev, tsfc, emis, concs,
+                                top_at_1=top_at_1)
+        return fb.flux_up, fb.flux_dn
+
+    def wrapped(play, plev, tlay, tlev, tsfc, emis, concs):
+        return shard_map(
+            body, mesh=mesh,
+            in_specs=(col,) * 6 + (_conc_specs(concs),),
+            out_specs=(col, col), check_vma=False,
+        )(play, plev, tlay, tlev, tsfc, emis, concs)
+
+    return wrapped
+
+
+def sw_core_sharded(mesh, models, spectral, solar_source, top_at_1):
+    """The staged SW core under ``shard_map`` over 'col' (see
+    lw_core_sharded). Returns a jittable ``fn(play, plev, tlay, sfc_alb,
+    mu0, usecol, tsi, concs) -> (flux_up, flux_dn, flux_dn_dir)``."""
+    from jax.sharding import PartitionSpec as P
+
+    from ..parallel.shard_ops import shard_map
+
+    col = P("col")
+
+    def body(play, plev, tlay, sfc_alb, mu0, usecol, tsi, concs):
+        fb = _sw_core_lay_major(models, spectral, solar_source, play, plev,
+                                tlay, sfc_alb, mu0, usecol, tsi, concs,
+                                top_at_1=top_at_1)
+        return fb.flux_up, fb.flux_dn, fb.flux_dn_dir
+
+    def wrapped(play, plev, tlay, sfc_alb, mu0, usecol, tsi, concs):
+        return shard_map(
+            body, mesh=mesh,
+            in_specs=(col,) * 7 + (_conc_specs(concs),),
+            out_specs=(col, col, col), check_vma=False,
+        )(play, plev, tlay, sfc_alb, mu0, usecol, tsi, concs)
+
+    return wrapped

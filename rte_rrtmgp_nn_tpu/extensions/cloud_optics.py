@@ -10,9 +10,9 @@ ssa/asymmetry; ``compute_all_from_pade`` + ``pade_eval`` :650-775);
 (:354-535); ``set_ice_roughness`` (:541-554). The shipped coefficient files
 ``rrtmgp-cloud-optics-coeffs-{lw,sw}.nc`` load directly.
 
-TPU-first: tables are small (16 bands x <=20 sizes) and live comfortably in
-VMEM; the per-(col,lay) size interpolation is a tiny gather XLA vectorizes
-over the band lane dimension; masks are jnp.where, not branches.
+Design: tables are small (16 bands x <=20 sizes); the per-(col,lay) size
+interpolation is an exact gather of table rows that XLA vectorizes over the
+band axis; masks are jnp.where, not branches.
 """
 from __future__ import annotations
 
@@ -153,44 +153,23 @@ def load_cloud_optics(path: str, dtype=jnp.float32,
 
 def _from_table(mask, wp_, re, offset, upr, ext_t, ssa_t, asy_t):
     """Linear LUT interpolation in effective radius; tables (nband, nsize).
-    Returns tau, tau*ssa, tau*ssa*g with band as the minor axis.
-
-    f32 path: ONE exact one-hot row-pick matmul against the combined
-    [ext|ssa|asy | forward diffs] table (3-term bf16 split, same trick as
-    lw_megakernel.planck_interp_table) instead of 12 dynamic row gathers --
-    the gathers cost more device time than the entire clear-sky megakernel
-    (2.6/3.3 ms LW/SW at 1800 cols vs 0.25 ms for the matmul form; TPU
-    gathers on the minor axis are poison, see docs/PERFORMANCE.md).
-    Bit-exact vs the gather form: the 0/1 one-hot and the bf16-split table
-    terms survive MXU truncation, and the f32 lerp val + fint*diff keeps
-    the gather path's grouping lo + fint*(hi - lo)."""
+    Returns tau, tau*ssa, tau*ssa*g with band as the minor axis. One gather
+    of the paired (value | forward difference) rows per table, then
+    lo + fint * (hi - lo)."""
     nband, nsteps = ext_t.shape
-    dtype = jnp.result_type(re.dtype, ext_t.dtype)
     step_size = (upr - offset) / (nsteps - 1)
     fidx = (re - offset) / step_size
     index = jnp.clip(jnp.floor(fidx).astype(jnp.int32), 0, nsteps - 2)
     fint = (fidx - index)[..., None]  # (ncol, nlay, 1)
     m = mask[..., None]
 
-    if dtype == jnp.float32:
-        from ..ops.table_split import paired_diff_table, split3_bf16
+    def interp(tbl):
+        rows = tbl.T  # (nsize, nband)
+        pair = jnp.concatenate([rows[:-1], rows[1:] - rows[:-1]], axis=1)
+        g = jnp.take(pair, index, axis=0)  # (ncol, nlay, 2 * nband)
+        return g[..., :nband] + fint * g[..., nband:]
 
-        hi, mid, lo = split3_bf16(paired_diff_table(ext_t, ssa_t, asy_t))
-        k = jax.lax.broadcasted_iota(
-            jnp.int32, (*re.shape, nsteps), re.ndim)
-        oh = (k == index[..., None]).astype(dtype)
-        g = (jnp.dot(oh, hi) + jnp.dot(oh, mid)) + jnp.dot(oh, lo)
-        vals = g[..., :3 * nband] + fint * g[..., 3 * nband:]
-        e_v = vals[..., :nband]
-        s_v = vals[..., nband:2 * nband]
-        a_v = vals[..., 2 * nband:]
-    else:  # f64 (CPU validation): exact gathers, no bf16 split possible
-        def interp(tbl):
-            lo_ = tbl.T[index]  # (ncol, nlay, nband)
-            hi_ = tbl.T[index + 1]
-            return lo_ + fint * (hi_ - lo_)
-
-        e_v, s_v, a_v = interp(ext_t), interp(ssa_t), interp(asy_t)
+    e_v, s_v, a_v = interp(ext_t), interp(ssa_t), interp(asy_t)
 
     t = jnp.where(m, wp_[..., None] * e_v, 0.0)
     ts = t * s_v

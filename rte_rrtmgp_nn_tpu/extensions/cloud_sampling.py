@@ -6,7 +6,7 @@ Reference parity: ``extensions/cloud_optics/mo_cloud_sampling.F90`` --
 per-interface correlation parameter), and ``draw_samples`` (:36-120,
 band->g-point cloud placement by boolean mask).
 
-TPU-first: the per-column layer sweep carrying "reuse or redraw the random
+Design: the per-column layer sweep carrying "reuse or redraw the random
 deviates" becomes a lax.scan over layers with the deviate vector as carry;
 first/last-cloudy-layer trimming is implied by the cf > 0 masking.
 """

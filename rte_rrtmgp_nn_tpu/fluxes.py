@@ -5,7 +5,7 @@ flexible g-point variant), ``rte/kernels/mo_fluxes_broadband_kernels.F90``
 (sum/net over the g-point dimension), ``extensions/mo_fluxes_byband.F90`` +
 kernels, and ``extensions/mo_fluxes_bygpoint.F90``.
 
-TPU-first: the solvers return spectral (g-point) fluxes or in-scan broadband
+Design: the solvers return spectral (g-point) fluxes or in-scan broadband
 accumulations; "reducers" here are pure functions from g-point fluxes
 (ncol, nlev, ngpt) to the requested diagnostics. The abstract reduce() /
 are_desired() machinery of the Fortran collapses into selecting which

@@ -5,7 +5,7 @@ scalar / 1-D profile / full 2-D VMR storage with broadcasting on read,
 name normalization, subsetting) and ``rrtmgp/mo_gas_ref_concentrations.F90``
 (reference scenario VMRs for gases missing from the input).
 
-TPU-first: a frozen pytree wrapping a dict of arrays; each entry is stored
+Design: a frozen pytree wrapping a dict of arrays; each entry is stored
 with shape (), (nlay,), or (ncol, nlay) and broadcast on access. Gas names
 are static metadata (dict keys), so jit retraces only when the gas *set*
 changes, not the values.

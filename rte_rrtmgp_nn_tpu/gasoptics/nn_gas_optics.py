@@ -15,10 +15,9 @@ Reference parity:
       SW:   tau_tot = tau_abs + tau_ray; ssa = tau_ray / tau_tot; g = 0
   - column dry amount: ``get_col_dry`` (mo_gas_optics_rrtmgp.F90:1662-1707).
 
-TPU-first: the whole pipeline (pack -> scale -> MLP -> postproc) is pure
-jnp on (ncol*nlay, features) batches; XLA fuses the elementwise stages into
-the surrounding GEMMs, and ``ops/pallas/mlp.py`` provides a hand-fused
-single-pass kernel for the hot path.
+Design: the whole pipeline (pack -> scale -> MLP -> postproc) is pure jnp on
+(ncol*nlay, features) batches; XLA fuses the elementwise stages around the
+GEMMs, which run at ``config.MATMUL_PRECISION``.
 """
 from __future__ import annotations
 
@@ -53,20 +52,6 @@ def get_col_dry(vmr_h2o: jnp.ndarray, plev: jnp.ndarray, latitude: Optional[jnp.
     return (
         10.0 * delta_plev * constants.avogad * fact
         / (1000.0 * m_air * 100.0 * g0[:, None])
-    )
-
-
-def get_col_dry_lay_major(vmr_h2o_t: jnp.ndarray, plev_t: jnp.ndarray) -> jnp.ndarray:
-    """get_col_dry on layer-major inputs: vmr_h2o_t (nlay, ncol), plev_t
-    (nlay+1, ncol) -> (nlay, ncol). Same expressions, no transposes (for
-    the megakernel cores whose whole input stack is lay-major)."""
-    g0 = constants.grav
-    delta_plev = jnp.abs(plev_t[:-1] - plev_t[1:])
-    fact = 1.0 / (1.0 + vmr_h2o_t)
-    m_air = (constants.m_dry + constants.m_h2o * vmr_h2o_t) * fact
-    return (
-        10.0 * delta_plev * constants.avogad * fact
-        / (1000.0 * m_air * 100.0 * g0)
     )
 
 
@@ -119,124 +104,6 @@ def compute_nn_inputs(
     return (x - model.input_min) / (model.input_max - model.input_min)
 
 
-def compute_nn_inputs_split(
-    play: jnp.ndarray,
-    tlay: jnp.ndarray,
-    gas_desc: GasConcs,
-    model: NNModel,
-    const_gas_names: Sequence[str] = (),
-    lay_major: bool = False,
-    raw_lanes: bool = False,
-):
-    """compute_nn_inputs factored for the fused megakernels: features that
-    vary per (layer, column) come out as layer-major lanes, features that
-    are constant along the layer axis as one (ncol, nc) block the kernel
-    broadcasts in VMEM -- layer-constant gases (RFMIP's per-experiment
-    global means, scenario-reference fills) never materialize at
-    (nlay, ncol) and never ride HBM per layer.
-
-    play/tlay: (ncol, nlay) raw; const_gas_names: gases the CALLER asserts
-    are layer-constant (checked host-side by the drivers). Returns
-    (lanes2d: list of scaled (nlay, ncol) arrays, const_feats (ncol, nc)
-    scaled, perm) where perm maps [lane order | const order] back to the
-    model's input_names positions -- apply it to the first-layer weight
-    ROWS (w1[perm]) instead of reordering features. Lanes are returned
-    unstacked (each scaled with its own scalar min/max) so the caller's
-    single fused concatenate is the only materialization. Values are
-    bit-identical to compute_nn_inputs (same transform-then-scale
-    expressions).
-
-    lay_major=True: play/tlay and every 2-D gas VMR are ALREADY
-    (nlay, ncol) -- no transposes are emitted at all (the canonical-layout
-    megakernel driver path, where layout work happens host-side).
-    """
-    from ..gas_concs import normalize_gas_name
-
-    if lay_major:
-        nlay, ncol = play.shape
-        d0, d1 = nlay, ncol
-        T = lambda v: v
-    else:
-        ncol, nlay = play.shape
-        d0, d1 = ncol, nlay
-        T = lambda v: v.T
-    cset = {normalize_gas_name(n) for n in const_gas_names}
-
-    def vmr(name):
-        raw = gas_desc.get_raw(name)
-        if lay_major and raw.ndim == 1:
-            # 1-D VMRs are per-LAYER profiles; get_vmr broadcasts them
-            # along the last axis, which in lay-major is columns
-            return jnp.broadcast_to(raw[:, None], (nlay, ncol))
-        return gas_desc.get_vmr(name, d0, d1)
-
-    lanes2d, idx2d, consts, idxc = [], [], [], []
-    for i, name in enumerate(model.input_names):
-        if name == "tlay":
-            v = T(tlay)
-        elif name == "play":
-            v = T(jnp.log(play))
-        elif name in ("h2o", "o3"):
-            v = T(jnp.sqrt(jnp.sqrt(vmr(name))))
-        elif name in gas_desc:
-            if normalize_gas_name(name) in cset:
-                raw = gas_desc.get_raw(name)
-                if raw.ndim == 0:
-                    c = jnp.broadcast_to(raw, (ncol,))
-                elif raw.ndim == 2:
-                    c = raw[0] if lay_major else raw[:, 0]
-                else:  # per-layer profile can't be layer-constant
-                    raise ValueError(f"{name}: 1-D (per-layer) VMR cannot "
-                                     "be in const_gas_names")
-                consts.append(c.astype(play.dtype))
-                idxc.append(i)
-                continue
-            v = T(vmr(name))
-        else:
-            ref = (0.0 if config.nn_scenario_index == 0
-                   else get_ref_vmr(config.nn_scenario_index, name))
-            consts.append(jnp.full((ncol,), ref, play.dtype))
-            idxc.append(i)
-            continue
-        lanes2d.append(v)
-        idx2d.append(i)
-
-    mn, mx = model.input_min, model.input_max
-    if raw_lanes:
-        # mega5 mode: lanes stay RAW (pre-transform); the kernel applies
-        # transform-then-scale itself, so the features never materialize
-        # in HBM at all. tf codes: 0 = identity, 1 = log, 2 = sqrt(sqrt).
-        # Scaling inside the kernel is (tf(x) - mn) * inv with
-        # inv = 1/(mx - mn): <=1 ulp from the staged division.
-        raw, tf = [], []
-        for v, i in zip(lanes2d, idx2d):
-            name = model.input_names[i]
-            if name == "play":
-                raw.append(T(play)); tf.append(1)
-            elif name in ("h2o", "o3"):
-                raw.append(T(vmr(name))); tf.append(2)
-            else:
-                raw.append(v); tf.append(0)
-        ii = jnp.array(idx2d) if idx2d else jnp.array([], jnp.int32)
-        mn2 = mn[ii]
-        inv2 = 1.0 / (mx[ii] - mn[ii])
-        lanes2d = raw
-        scale_rows = jnp.stack([mn2, inv2], axis=0)  # (2, n2d)
-    else:
-        lanes2d = [(v - mn[i]) / (mx[i] - mn[i]) for v, i in zip(lanes2d, idx2d)]
-    if consts:
-        cf = jnp.stack(consts, axis=-1)
-        cf = (cf - mn[jnp.array(idxc)]) / (
-            mx[jnp.array(idxc)] - mn[jnp.array(idxc)])
-    else:
-        # zero-width blocks are illegal in Mosaic: one dummy zero feature
-        # (the matching w1c weight row must be zero-padded by the caller)
-        cf = jnp.zeros((ncol, 1), play.dtype)
-    if raw_lanes:
-        return lanes2d, cf, idx2d + idxc, tuple(tf), scale_rows
-    return lanes2d, cf, idx2d + idxc
-
-
 def predict_tau(model: NNModel, nn_inputs: jnp.ndarray, col_dry: jnp.ndarray) -> jnp.ndarray:
     """Absorption (or Rayleigh) optical depth:
     (ystd*y + ymean)**8 * col_dry (output_sgemm_tau postprocessing)."""
@@ -258,35 +125,18 @@ def predict_nn_lw(
     models: Sequence[NNModel],
     nn_inputs: jnp.ndarray,
     col_dry: jnp.ndarray,
-    use_pallas: bool | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """LW prediction -> (tau, pfrac), each (ncol, nlay, ngpt).
 
     Two-model mode (absorption + planck_frac nets) or single combined
     "lw_both" model predicting 2*ngpt outputs split into tau || pfrac
     (predict_nn_lw_blas, mo_gas_optics_kernels.F90:690-862).
-
-    use_pallas: route through the single-pass fused Pallas kernel
-    (ops/pallas/mlp.py). Default: on TPU backends only.
     """
-    if use_pallas is None:
-        import jax
-
-        use_pallas = jax.default_backend() == "tpu"
     if len(models) == 2:
-        if use_pallas:
-            from ..ops.pallas.mlp import fused_predict_tau
-
-            tau = fused_predict_tau(models[0], nn_inputs, col_dry)
-        else:
-            tau = predict_tau(models[0], nn_inputs, col_dry)
+        tau = predict_tau(models[0], nn_inputs, col_dry)
         pfrac = predict_pfrac(models[1], nn_inputs)
         return tau, pfrac
     (model,) = models
-    if use_pallas:
-        from ..ops.pallas.mlp import fused_predict_lw_both
-
-        return fused_predict_lw_both(model, nn_inputs, col_dry)
     raw = model.apply_raw(nn_inputs)  # (..., 2*ngpt)
     ngpt = model.n_outputs // 2
     y = model.output_std[:ngpt] * raw[..., :ngpt] + model.output_mean[:ngpt]
@@ -302,22 +152,11 @@ def predict_nn_sw(
     nn_inputs: jnp.ndarray,
     col_dry: jnp.ndarray,
     with_rayleigh: bool = True,
-    use_pallas: bool | None = None,
 ):
     """SW prediction -> (tau_tot, ssa) or absorption tau only
-    (predict_nn_sw_blas, mo_gas_optics_kernels.F90:869-1018).
-
-    use_pallas default is False: XLA overlaps the two small SW networks
-    better than the serialized fused kernel (measured 6.2 vs 6.9 ms on the
-    1800-column RFMIP SW core)."""
-    if use_pallas is None:
-        use_pallas = False
+    (predict_nn_sw_blas, mo_gas_optics_kernels.F90:869-1018)."""
     if not with_rayleigh:
         return predict_tau(models[0], nn_inputs, col_dry), None
-    if use_pallas:
-        from ..ops.pallas.mlp import fused_predict_sw
-
-        return fused_predict_sw(models[0], models[1], nn_inputs, col_dry)
     tau_abs = predict_tau(models[0], nn_inputs, col_dry)
     tau_ray = predict_tau(models[1], nn_inputs, col_dry)
     tau_tot = tau_abs + tau_ray
@@ -339,7 +178,6 @@ def gas_optics_lw_nn(
     tlev: Optional[jnp.ndarray] = None,
     top_at_1: bool = True,
     save_pfrac: bool = False,
-    use_pallas: bool | None = None,
 ):
     """Full LW NN gas-optics path (gas_optics_int NN branch,
     mo_gas_optics_rrtmgp.F90:371-408).
@@ -356,7 +194,7 @@ def gas_optics_lw_nn(
         col_dry = get_col_dry(gas_desc.get_vmr("h2o", ncol, nlay), plev)
 
     nn_inputs = compute_nn_inputs(play, tlay, gas_desc, models[0])
-    tau, pfrac = predict_nn_lw(models, nn_inputs, col_dry, use_pallas=use_pallas)
+    tau, pfrac = predict_nn_lw(models, nn_inputs, col_dry)
     lay_src, lev_src, sfc_src, sfc_jac = compute_planck_source_nn(
         pfrac, tlay, tlev, tsfc, spectral, planck_table, top_at_1=top_at_1
     )
@@ -381,7 +219,6 @@ def gas_optics_sw_nn(
     solar_source: jnp.ndarray,
     col_dry: Optional[jnp.ndarray] = None,
     with_rayleigh: bool = True,
-    use_pallas: bool | None = None,
 ):
     """Full SW NN gas-optics path (gas_optics_ext NN branch,
     mo_gas_optics_rrtmgp.F90:529-599). Returns (tau, ssa_or_None, toa_src)
@@ -391,6 +228,6 @@ def gas_optics_sw_nn(
     if col_dry is None:
         col_dry = get_col_dry(gas_desc.get_vmr("h2o", ncol, nlay), plev)
     nn_inputs = compute_nn_inputs(play, tlay, gas_desc, models[0])
-    tau, ssa = predict_nn_sw(models, nn_inputs, col_dry, with_rayleigh, use_pallas=use_pallas)
+    tau, ssa = predict_nn_sw(models, nn_inputs, col_dry, with_rayleigh)
     toa_src = jnp.broadcast_to(solar_source[None, :], (ncol, spectral.ngpt))
     return tau, ssa, toa_src

@@ -226,9 +226,7 @@ class PlanckTable:
         idx0 = jnp.clip(val0.astype(jnp.int32), 0, ntab - 2)
         frac = val0 - val0.astype(jnp.int32).astype(val0.dtype)
         # one gather of the paired (value, forward-difference) table
-        # instead of two row gathers -- TPU gathers are the cost here, and
-        # the pairing is constant-folded at compile time (the table is a
-        # jaxpr constant in every driver)
+        # instead of two row gathers
         pair = jnp.concatenate(
             [self.totplnk[:-1], self.totplnk[1:] - self.totplnk[:-1]], axis=1
         )

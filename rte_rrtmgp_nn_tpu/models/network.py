@@ -12,9 +12,8 @@ Reference parity:
   - activations: ``neural/mod_activation.F90`` (gaussian, relu, sigmoid,
     hard_sigmoid, softsign, tanh, linear).
   - inference: ``mod_network.F90 output_sgemm_flat`` (a GEMM + fused
-    bias/activation per layer); here one jnp dot chain the XLA/TPU compiler
-    maps onto the MXU, with a fused Pallas kernel for the full
-    MLP+postprocessing pipeline in ``ops/pallas/mlp.py``.
+    bias/activation per layer); here one jnp dot chain that XLA compiles,
+    at ``config.MATMUL_PRECISION``.
 
 Weight convention: numpy arrays read from the file have shape
 (n_in, n_out) (C-order view of the Fortran (n_out, n_in)); inference is
@@ -29,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..config import MATMUL_PRECISION
 from ..utils import ncio
 
 _ACTIVATIONS: dict[str, Callable] = {
@@ -78,8 +78,9 @@ class NNModel:
         postprocessing instead). x: (..., n_inputs) already scaled."""
         h = x
         for w, b, act in zip(self.weights[:-1], self.biases[:-1], self.activations[:-1]):
-            h = _ACTIVATIONS[act](jnp.dot(h, w) + b)
-        return jnp.dot(h, self.weights[-1]) + self.biases[-1]
+            h = _ACTIVATIONS[act](jnp.dot(h, w, precision=MATMUL_PRECISION) + b)
+        return (jnp.dot(h, self.weights[-1], precision=MATMUL_PRECISION)
+                + self.biases[-1])
 
     def apply_with_final_activation(self, x: jnp.ndarray) -> jnp.ndarray:
         """Network output including the configured final activation
@@ -148,8 +149,7 @@ def save_model_netcdf(path: str, model: NNModel, string_len: int = 32,
     attrs: optional mapping written as GLOBAL attributes (ignored by every
     loader, incl. the reference Fortran one). The training loops record the
     full 8-metric radiation-eval vector + final score here so the artifact
-    carries its own provenance (filenames alone proved ambiguous,
-    VERDICT r4 weak-6)."""
+    carries its own provenance (filenames alone proved ambiguous)."""
     nlayers = model.n_layers
     dims: dict[str, int] = {
         "nn_layers": nlayers,

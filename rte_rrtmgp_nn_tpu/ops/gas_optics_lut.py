@@ -9,7 +9,7 @@ including the single-precision overflow-ordering fix :436-440),
 ``compute_tau_rayleigh`` (:469-511), ``compute_Planck_source`` (:514-611),
 and the ``interpolate2D/3D_byflav`` stencils (:1060-1165).
 
-TPU-first design: the gather-heavy table interpolation is reformulated
+Design: the gather-heavy table interpolation is reformulated
 densely per g-point -- per-g-point flavor indices are precomputed statically
 so each of the 8 trilinear corners becomes ONE flat gather over
 (ncol*nlay*ngpt) elements from the flattened kmajor, with XLA fusing the

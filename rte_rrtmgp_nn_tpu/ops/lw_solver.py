@@ -9,8 +9,8 @@ Eq 13 with the Blossey series expansion below tau_thresh), ``lw_two_stream``
 (``lw_transport_1rescl`` :1729-1795 with Cn = 0.4*wb/scaleTau :211-233), and
 the Gauss quadrature table of ``rte/mo_rte_lw.F90:113-125``.
 
-TPU-first design:
-  - arrays are (ncol, nlay, ngpt), g-points minor (lane dim).
+Design:
+  - arrays are (ncol, nlay, ngpt), g-points minor.
   - all transports are affine layer recurrences solved with
     ``ops.scan.affine_scan`` (lax.scan or log-depth associative scan).
   - orientation is canonicalized to top-at-index-0 by flipping, so both
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import config
+from ..config import MATMUL_PRECISION, config
 from .scan import affine_scan, affine_scan_reverse
 from .adding import adding
 
@@ -106,7 +106,7 @@ def _affine_scan_broadband(trans, source, r0):
     """Downward affine recurrence emitting per-level spectral sums instead
     of the full radiance field: scan carry is the (ncol, ngpt) radiance,
     outputs are (ncol,) broadband sums -- the in-scan reduction that keeps
-    gpt-resolved fluxes out of HBM (the TPU analogue of the reference's
+    gpt-resolved fluxes out of device memory (the analogue of the reference's
     inlined 4-way-unrolled broadband reduction,
     mo_rte_solver_kernels.F90:296-320). Returns (bb_levels, r_last)."""
 
@@ -161,8 +161,7 @@ def _lw_noscat_broadband_fused(
     linear-in-tau sources, transport, and spectral reduction all inside the
     two layer scans -- no (ncol, nlay, ngpt) intermediates ever reach HBM.
     The up-sweep recomputes trans/source_up from tau (one extra exp) rather
-    than storing them: on TPU the recompute is far cheaper than the HBM
-    round-trip. Canonical top-at-0; single angle.
+    than storing them, trading one exp for a device-memory round trip. Canonical top-at-0; single angle.
 
     lay_major=True: tau/lay_source are (nlay, ncol, ngpt) and lev_source
     (nlay+1, ncol, ngpt) -- already in scan layout, so no transposed
@@ -258,11 +257,9 @@ def lw_noscat_broadband_from_pfrac(
     reference's compute_Planck_source_nn + lw_solver_noscat pipeline
     (mo_gas_optics_kernels.F90:615-683 + mo_rte_solver_kernels.F90:119-330).
 
-    NOTE: measured SLOWER than the materialized-source path on TPU v5e at
-    RFMIP scale (7.8 vs 5.6 ms per 1800 cols): 60 per-step (ncol, nband) @
-    (nband, ngpt) matmuls inside the scan cost more than the saved
-    lay/lev_source HBM traffic. Kept as an option for memory-limited cases
-    (it removes two (ncol, nlay, ngpt) arrays from the footprint).
+    It trades 60 per-step (ncol, nband) @ (nband, ngpt) products inside the
+    scans for the lay/lev_source traffic; it removes two (ncol, nlay, ngpt)
+    arrays from the footprint (for memory-limited cases).
 
     tau, pfrac: (ncol, nlay, ngpt); planck_lay: (ncol, nlay, nband);
     planck_lev: (ncol, nlay+1, nband); planck_sfc[_jac]: (ncol, nband);
@@ -287,12 +284,13 @@ def lw_noscat_broadband_from_pfrac(
     blev_l = jnp.moveaxis(planck_lev[:, :-1, :], 1, 0)
     blev_next = jnp.moveaxis(planck_lev[:, 1:, :], 1, 0)
     oh = one_hot.astype(dtype)
+    expand = lambda b: jnp.dot(b, oh, precision=MATMUL_PRECISION)
 
     def sources_of(tl, pf, pfn, bla, ble, blen):
         trans = _exp(-tl)
-        lay = pf * (bla @ oh)
-        lev_t = pf * (ble @ oh)
-        lev_b = pfn * (blen @ oh)
+        lay = pf * expand(bla)
+        lev_t = pf * expand(ble)
+        lev_b = pfn * expand(blen)
         src_dn, src_up = _noscat_sources(
             tl, trans, lay, lev_t, lev_b, tau_thresh)
         return trans, src_dn, src_up
@@ -308,7 +306,7 @@ def lw_noscat_broadband_from_pfrac(
     bb_dn = jnp.concatenate([jnp.sum(rad_top, -1)[:, None], jnp.moveaxis(dn_sums, 0, 1)], 1)
 
     pf_sfc = pfrac[:, -1, :]
-    sfc_source = pf_sfc * (planck_sfc @ oh)
+    sfc_source = pf_sfc * expand(planck_sfc)
     rad_sfc = rad_sfc_dn * (1.0 - sfc_emis) + sfc_emis * sfc_source
 
     def up(carry, xs_):
@@ -319,7 +317,7 @@ def lw_noscat_broadband_from_pfrac(
         return (rad_next, jac_next), (jnp.sum(rad_next, -1), jnp.sum(jac_next, -1))
 
     jac_sfc = (
-        sfc_emis * (pf_sfc * ((planck_sfc_jac - planck_sfc) @ oh))
+        sfc_emis * (pf_sfc * expand(planck_sfc_jac - planck_sfc))
         if compute_jac
         else jnp.zeros_like(rad_sfc)
     )
@@ -467,19 +465,6 @@ def _lw_solver_noscat_1angle(
     two_pi_w = jnp.asarray(2.0 * np.pi * weight, dtype)
 
     if broadband and not do_rescaling and not config.use_pade_source:
-        if (
-            config.use_pallas_lw_solver
-            and not config.fast_exponential  # kernel hardcodes exact exp
-            and sfc_source_jac is None
-            and tau.dtype == jnp.float32
-        ):
-            from .pallas.lw_solver import lw_noscat_broadband_pallas
-
-            bb_up, bb_dn = lw_noscat_broadband_pallas(
-                tau, lay_source, lev_source, sfc_emis, sfc_source,
-                d_secant=D, weight=weight, inc_rad=inc_flux / two_pi_w,
-            )
-            return LWSolution(bb_up, bb_dn, None)
         return _lw_noscat_broadband_fused(
             tau, lay_source, lev_source, sfc_emis, sfc_source, inc_flux,
             D, weight, sfc_source_jac,
@@ -647,8 +632,7 @@ def lw_solver_noscat_lay_major(
     inputs must be moveaxis'd into scan layout).
 
     variant="presrc" (default) precomputes trans/src_dn/src_up in one
-    fused pass so each scan streams 2 fields instead of 4 (measured
-    LW core 3.65 -> 2.6 ms per 1800 RFMIP cols on v5e);
+    fused pass so each scan streams 2 fields instead of 4;
     "fused" recomputes trans+sources inside both sweeps."""
     nlay, ncol, ngpt = tau.shape
     dtype = tau.dtype

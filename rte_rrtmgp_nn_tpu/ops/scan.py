@@ -3,8 +3,8 @@
 The reference's RTE transport is a set of strictly sequential per-column
 recurrences over the layer dimension (``lw_transport_noscat_dn/up``,
 ``adding``, the SW direct beam; ``mo_rte_solver_kernels.F90:950-1009,
-513-531, 1526-1637``). On TPU these become scans over the layer axis with
-(ncol, ngpt) "vector" elements; ncol*ngpt supplies ample VPU parallelism per
+513-531, 1526-1637``). Here these become scans over the layer axis with
+(ncol, ngpt) "vector" elements; ncol*ngpt supplies the parallelism of each
 step, and an associative (log-depth) formulation is available for the affine
 recurrences when nlay is large relative to the device's parallelism.
 """

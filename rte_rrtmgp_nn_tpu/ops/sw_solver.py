@@ -7,7 +7,7 @@ Reference parity: ``rte/kernels/mo_rte_solver_kernels.F90`` --
 single-precision-safe forms with the Rdir/Tdir clamping of :1467-1469 and
 the k_min floor of :76-82) and the shared ``adding`` (:1526-1637).
 
-TPU-first design: the direct beam is exp(-cumsum(tau/mu0)) -- a stable
+Design: the direct beam is exp(-cumsum(tau/mu0)) -- a stable
 closed form of the layer recurrence (exponents are nonpositive, so no
 overflow) that XLA computes in one fused pass; layer reflectances/sources
 are elementwise; diffuse transport is the adding method (see ops/adding).
@@ -106,18 +106,13 @@ def _sw_two_stream_coeffs(tau_l, ssa_l, g_l, mu0b):
     by sw_two_stream_source and both fused broadband sweeps."""
     dtype = tau_l.dtype
     eps = jnp.finfo(dtype).eps
-    mu0_inv = 1.0 / mu0b
     # Zdunkowski Practical Improved Flux Method coefficients.
     gamma1 = (8.0 - ssa_l * (5.0 + 3.0 * g_l)) * 0.25
     gamma2 = 3.0 * (ssa_l * (1.0 - g_l)) * 0.25
-    gamma3 = (2.0 - 3.0 * mu0b * g_l) * 0.25
-    gamma4 = 1.0 - gamma3
-    alpha1 = gamma1 * gamma4 + gamma2 * gamma3  # MW Eq 16
-    alpha2 = gamma1 * gamma3 + gamma2 * gamma4  # MW Eq 17
     k = jnp.sqrt(jnp.maximum((gamma1 - gamma2) * (gamma1 + gamma2), config.k_min))
     # _exp honors config.fast_exponential (reference Tnoscat :1293,
     # exp_minusktau :1311 under -DFAST_EXPONENTIAL).
-    tnoscat = _exp(-tau_l * mu0_inv)
+    tnoscat = _exp(-tau_l / mu0b)
     e1 = _exp(-tau_l * k)
     e2 = e1 * e1
     k2e = 2.0 * k * e1
@@ -125,7 +120,23 @@ def _sw_two_stream_coeffs(tau_l, ssa_l, g_l, mu0b):
     rt_term = 1.0 / (k * (1.0 + e2) + gamma1 * (1.0 - e2))
     rdif = rt_term * gamma2 * (1.0 - e2)  # MW Eq 25
     tdif = rt_term * k2e  # MW Eq 26
+    # Near the resonance k*mu0 == 1, Eqs 14-15 are a removable 0/0 that
+    # float32 evaluates by cancellation (errors ~eps/|1 - k*mu0|; measured
+    # 0.055 W/m2 of flux from one g-point at |1 - (k*mu0)^2| = 3e-5). There
+    # they are evaluated at a mu0 moved by a relative sqrt(eps) away from
+    # 1/k, which balances the rounding (~eps/shift) against the shift; the
+    # direct beam itself keeps the true mu0.
+    shift = float(eps) ** 0.5
     k_mu = k * mu0b
+    near = jnp.abs(1.0 - k_mu) < shift
+    mu0r = jnp.where(near, mu0b * jnp.where(k_mu < 1.0, 1.0 - shift,
+                                            1.0 + shift), mu0b)
+    tnoscat_r = jnp.where(near, _exp(-tau_l / mu0r), tnoscat)
+    gamma3 = (2.0 - 3.0 * mu0r * g_l) * 0.25
+    gamma4 = 1.0 - gamma3
+    alpha1 = gamma1 * gamma4 + gamma2 * gamma3  # MW Eq 16
+    alpha2 = gamma1 * gamma3 + gamma2 * gamma4  # MW Eq 17
+    k_mu = k * mu0r
     k_mu2 = k_mu * k_mu
     k_g3 = k * gamma3
     k_g4 = k * gamma4
@@ -136,12 +147,12 @@ def _sw_two_stream_coeffs(tau_l, ssa_l, g_l, mu0b):
     rdir = rt2 * (
         (1.0 - k_mu) * (alpha2 + k_g3)
         - (1.0 + k_mu) * (alpha2 - k_g3) * e2
-        - k2e * (gamma3 - alpha2 * mu0b) * tnoscat
+        - k2e * (gamma3 - alpha2 * mu0r) * tnoscat_r
     )
     # MW Eq 15 (diffuse transmittance of direct beam), direct part omitted.
     tdir = rt2 * (
-        k2e * (gamma4 + alpha1 * mu0b)
-        - tnoscat * ((1.0 + k_mu) * (alpha1 + k_g4) - (1.0 - k_mu) * (alpha1 - k_g4) * e2)
+        k2e * (gamma4 + alpha1 * mu0r)
+        - tnoscat_r * ((1.0 + k_mu) * (alpha1 + k_g4) - (1.0 - k_mu) * (alpha1 - k_g4) * e2)
     )
     # Energy-safety clamps (credit Robin Hogan / ecRAD; reference :1467-1469).
     rdir = jnp.clip(rdir, 0.0, 1.0 - tnoscat)
@@ -154,7 +165,7 @@ def _sw_2stream_broadband_fused(tau, ssa, g, mu0, inc_flux_dir, sfc_alb_dir,
     """Fused broadband SW two-stream + adding (canonical top-at-0).
 
     The two-stream coefficients and direct-beam sources are computed inside
-    BOTH adding sweeps (recomputation is far cheaper on TPU than round-
+    BOTH adding sweeps (recomputation is cheaper than round-
     tripping rdif/tdif/source arrays through HBM); only the direct beam and
     the cumulative albedo/source stacks are materialized. Returns
     (bb_up, bb_dn_total, bb_dir), each (ncol, nlay+1).

@@ -4,10 +4,9 @@ Reference parity: ``rte/mo_optical_props.F90`` (ty_optical_props_1scl /
 _2str / _nstr plus delta_scale, increment, subset, validate) and the
 element-wise kernels in ``rte/kernels/mo_optical_props_kernels.F90``.
 
-TPU-first design:
+Design:
   - arrays are ``(ncol, nlay, ngpt)`` with the g-point dimension minor
-    (lane dimension, 112-256 wide: a natural fit for the 8x128 VPU and for
-    XLA fusion). The reference's Fortran ``(ngpt, nlay, ncol)`` is the same
+    (112-256 wide, contiguous for XLA fusion). The reference's Fortran ``(ngpt, nlay, ncol)`` is the same
     memory order, transposed notation.
   - containers are frozen dataclass pytrees; the spectral mapping is static
     aux data so jit keys on it.

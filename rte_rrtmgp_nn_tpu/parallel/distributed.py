@@ -1,11 +1,11 @@
 """Multi-host initialization and cross-host meshes.
 
 The reference has no distributed backend (single process + OpenMP). The
-TPU-native scaling path (SURVEY.md section 2.8/5): initialize
-jax.distributed on each host, build a global ('col', 'gpt') mesh spanning
-the slice, shard columns host-locally (halo-free), and let XLA place
-collectives on ICI within the slice. Only flux statistics / diagnostics
-reductions cross chips.
+scaling path here (SURVEY.md section 2.8/5): initialize jax.distributed on
+each host, build a global ('col', 'gpt') mesh over every process's
+devices, shard columns host-locally (halo-free), and let XLA place the
+collectives (NCCL over NVLink within a host, the network between hosts).
+Only flux statistics / diagnostics reductions cross devices.
 """
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed (no-op on single-process setups).
 
-    On TPU pods the arguments are discovered from the environment; pass
-    them explicitly for other fabrics. Must run before any backend use:
+    Pass coordinator_address (host:port of process 0), num_processes and
+    process_id explicitly unless the cluster's launcher exports them for
+    jax.distributed to discover. Must run before any backend use:
     probing the backend first (e.g. via jax.process_count or creating an
     array) makes distributed init impossible, so this checks
     jax.distributed's own state instead.
@@ -55,8 +56,8 @@ def initialize(
 
 def global_mesh(n_gpt: int = 1):
     """Mesh over ALL devices across hosts: 'col' spans hosts (data parallel
-    over DCN+ICI), 'gpt' stays within a host's chips (ICI only) so the
-    spectral-axis collectives never cross hosts."""
+    over NVLink and the network), 'gpt' stays within a host's cards
+    (NVLink only) so the spectral-axis collectives never cross hosts."""
     devices = np.array(jax.devices())
     return make_mesh(n_col=len(devices) // n_gpt, n_gpt=n_gpt, devices=devices.tolist())
 

@@ -25,10 +25,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def columnwise_shard_map(mesh: Mesh, fn: Callable, n_array_args: int):
@@ -56,9 +53,9 @@ def flux_stats(mesh: Mesh, flux: jnp.ndarray):
     mesh. Returns replicated scalars.
 
     The shard_map body sees the local (ncol_local, ...) block; the
-    collectives ride ICI. Equivalent of the reference's host-side summary
+    collectives ride NVLink. Equivalent of the reference's host-side summary
     statistics (e.g. the mean-flux prints, rrtmgp_rfmip_lw.F90:479-487)
-    at pod scale.
+    at mesh scale.
     """
 
     def body(x):
@@ -167,7 +164,7 @@ def rfmip_eval_metrics_sharded(
 ):
     """Distributed 8-metric evaluation: (nexp, nsites, nlev) arrays with
     SITES sharded over 'col'; every device reduces its local site block
-    through the shared core and the psums ride ICI. Returns the replicated
+    through the shared core and the psums ride NVLink. Returns the replicated
     8-vector -- numerically the single-chip eval_loop.eval_metrics result
     (same core, f32 psum tree vs one-device sum)."""
     import functools

@@ -1,11 +1,12 @@
 """Device-mesh sharding for column-parallel radiative transfer.
 
 The reference's parallelism is OpenMP threads over column blocks
-(rrtmgp_rfmip_lw.F90:364-367) on one node. The TPU-native scaling story
+(rrtmgp_rfmip_lw.F90:364-367) on one node. The scaling story here
 (SURVEY.md section 2.8) is:
 
   - 'col': columns are embarrassingly parallel (halo-free) -> the data-
-    parallel mesh axis, across chips within a slice (ICI) and hosts (DCN).
+    parallel mesh axis, across the cards of a host (NVLink) and across
+    hosts (network).
   - 'gpt': the spectral axis can be sharded too ("tensor parallel" for this
     workload): the NN output layer's GEMM splits over output features, all
     solver math is g-point-elementwise, and only the broadband reduction
@@ -25,7 +26,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def make_mesh(n_col: Optional[int] = None, n_gpt: int = 1, devices=None) -> Mesh:
-    """A ('col', 'gpt') mesh. Default: all devices on the column axis."""
+    """A ('col', 'gpt') mesh. Default: all devices on the column axis.
+    The cards of a host are joined all to all, so the mesh follows the
+    algorithm only: 'col' may span cards and hosts."""
     devices = list(devices if devices is not None else jax.devices())
     if n_col is None:
         n_col = len(devices) // n_gpt

@@ -7,7 +7,7 @@ no-scat, nstr -> not implemented) and ``rte/mo_rte_sw.F90`` (1scl ->
 direct-beam only, 2str -> two-stream+adding; per-g-point albedos supplied
 by the caller, as in this fork).
 
-TPU-first: pure functions returning spectral fluxes (plus optional
+Design: pure functions returning spectral fluxes (plus optional
 broadband-reduced containers); everything jit-friendly with static
 configuration arguments.
 """

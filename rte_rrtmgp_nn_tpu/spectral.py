@@ -4,11 +4,11 @@ Reference parity: the base-class part of ``rte/mo_optical_props.F90:62-66,
 223-279, 1073-1229`` (band2gpt / gpt2band / band_lims_wvn bookkeeping and the
 band->g-point ``expand``).
 
-TPU-first design: the mapping is *static* metadata (numpy, hashable), carried
-in the aux_data of optical-props pytrees so that jit retraces only when the
-spectral discretization actually changes. The band->gpt expansion is a
-gather with a precomputed per-gpt band index -- on TPU this lowers to a cheap
-one-hot matmul / take along the minor axis.
+Design: the mapping is *static* metadata (numpy, hashable), carried in the
+aux_data of optical-props pytrees so that jit retraces only when the
+spectral discretization actually changes. The band->gpt expansion is an
+exact gather with a precomputed per-gpt band index; the gpt->band sum adds
+each band's contiguous g-point slice.
 """
 from __future__ import annotations
 
@@ -26,18 +26,6 @@ def _gpt2band(band_lims_gpt: tuple, ngpt: int) -> np.ndarray:
         out[s:e] = ib
     out.flags.writeable = False  # cached: shared across callers
     return out
-
-
-@functools.lru_cache(maxsize=64)
-def _band_onehot(band_lims_gpt: tuple, ngpt: int) -> np.ndarray:
-    """(nband, ngpt) f32 one-hot band membership, built once per mapping
-    (the mapping is frozen/hashable, so repeated un-jitted expand/reduce
-    calls reuse it instead of re-running the Python loop)."""
-    g2b = _gpt2band(band_lims_gpt, ngpt)
-    nband = len(band_lims_gpt)
-    oh = (g2b[None, :] == np.arange(nband)[:, None]).astype(np.float32)
-    oh.flags.writeable = False  # cached: shared across callers
-    return oh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,19 +102,15 @@ class SpectralMapping:
         """Expand a per-band array (..., nband) to per-g-point (..., ngpt).
 
         Reference parity: mo_rte_lw.F90:429-447 (emissivity expand) and
-        mo_optical_props.F90 ``expand``.
-
-        TPU note: implemented as a one-hot matmul rather than a gather --
-        minor-axis gathers are slow on TPU while an (nband, ngpt) one-hot
-        contraction rides the MXU and fuses with neighbors.
+        mo_optical_props.F90 ``expand``. A gather along the band axis:
+        exact, with no matrix product to round.
         """
-        one_hot = jnp.asarray(
-            _band_onehot(self.band_lims_gpt, self.ngpt)
-        ).astype(band_values.dtype)
-        return band_values @ one_hot
+        return jnp.take(band_values, jnp.asarray(self.gpt2band), axis=-1)
 
     def reduce_sum(self, gpt_values: jnp.ndarray) -> jnp.ndarray:
         """Sum per-g-point values (..., ngpt) into per-band (..., nband)
-        (the byband flux reduction, mo_fluxes_byband_kernels.F90:31-66)."""
-        one_hot = jnp.asarray(_band_onehot(self.band_lims_gpt, self.ngpt).T)
-        return jnp.einsum("...g,gb->...b", gpt_values, one_hot.astype(gpt_values.dtype))
+        (the byband flux reduction, mo_fluxes_byband_kernels.F90:31-66):
+        one sum over each band's contiguous g-point slice."""
+        return jnp.stack(
+            [jnp.sum(gpt_values[..., s:e], axis=-1)
+             for s, e in self.band_lims_gpt], axis=-1)

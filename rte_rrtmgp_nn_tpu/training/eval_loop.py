@@ -8,7 +8,7 @@ callback ``RunRadiationScheme`` (ml_trainfuncs_keras.py:85-213: run the
 scheme each epoch, normalize metrics by the reference scheme's own scores,
 early-stop on the RMS "radiation score" with best-weights restore).
 
-TPU-first: the reference round-trips through a Fortran subprocess writing
+Design: the reference round-trips through a Fortran subprocess writing
 netCDF each epoch; here the full RFMIP flux evaluation is an in-process
 jitted function over the candidate model pytree -- no serialization, no
 process boundary. All 8 scalar reductions run device-side through ONE
@@ -87,8 +87,8 @@ def provenance_attrs(result: "EarlyStopResult",
     """Global netCDF attributes recording the full radiation-eval outcome
     (metric vector + normalizers + score) so the artifact is
     self-describing -- the score-encoded FILENAME alone proved ambiguous
-    (VERDICT r4 weak-6: a shipped pair's filename metrics were not
-    recoverable from its logged score)."""
+    (a shipped pair's filename metrics were not recoverable from its
+    logged score)."""
     m = np.asarray(result.history[result.best_epoch]["metrics"], np.float64)
     return {
         "radiation_score": float(result.best_score),

@@ -10,7 +10,7 @@ accuracy (ml_trainfuncs_keras.py:47-67); radiation-in-the-loop evaluation
 lives in training/eval_loop.py (in-process jitted RFMIP eval instead of
 the reference's Fortran subprocess).
 
-TPU-first: the train step is a pure jitted function over the NNModel
+Design: the train step is a pure jitted function over the NNModel
 pytree; data parallelism = batch sharding over the mesh 'col' axis with
 XLA-inserted gradient psums.
 """

@@ -1,8 +1,8 @@
 """General-purpose object-oriented netCDF access.
 
-TPU-framework analogue of the reference's ``easy_netcdf.F90``
-(``/root/reference/examples/rrtmgp-nn-training/easy_netcdf.F90:55-117``
-type definition): one class that opens/creates files, defines dimensions
+Analogue of the reference's ``easy_netcdf.F90``
+(``examples/rrtmgp-nn-training/easy_netcdf.F90:55-117`` type
+definition): one class that opens/creates files, defines dimensions
 and variables with units/long-name attributes, reads and writes scalars
 through 4-D arrays (optionally indexed along the slowest dimension),
 handles variable and global attributes, optional write-time transposes /

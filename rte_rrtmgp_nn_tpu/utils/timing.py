@@ -6,7 +6,7 @@ gas-optics phases, e.g. mo_rte_solver_kernels.F90:167-168) and the always-on
 ``system_clock`` wall timing with per-run reports
 (rrtmgp_rfmip_lw.F90:354-472).
 
-TPU-native equivalents: named trace annotations that show up in
+Equivalents here: named trace annotations that show up in
 jax.profiler / Perfetto traces, a lightweight wall-clock region timer with
 a GPTL-style hierarchical report, and a columns/s throughput helper.
 """

@@ -25,14 +25,9 @@ import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# regression numerics are platform-independent; run on CPU so the run
-# does not contend for the (exclusive) TPU. Set RUN_REGRESSION_ON_TPU=1
-# to opt out.
-if not os.environ.get("RUN_REGRESSION_ON_TPU"):
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+# regression numerics are platform-independent: the goldens are written
+# on the CPU
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 
 def main() -> int:
@@ -56,8 +51,9 @@ def main() -> int:
     from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist
     from rte_rrtmgp_nn_tpu.gasoptics.synthetic import generate_kdist_nc
 
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
-    from test_lut_gas_optics import GASES, make_atmosphere
+    from rte_rrtmgp_nn_tpu.drivers.seeded_inputs import make_atmosphere
+
+    GASES = ["h2o", "co2", "o3", "n2o", "ch4"]  # make_atmosphere's gases
 
     # each band takes its real file when given, synthetic otherwise -- a
     # single supplied file must be USED, not silently dropped

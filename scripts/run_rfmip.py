@@ -35,7 +35,7 @@ def main() -> int:
     ap.add_argument("--models-dir", default=os.path.join(REF, "neural/data"))
     ap.add_argument("--output-dir", default=".")
     ap.add_argument("--what", default="lw,sw", help="comma list: lw, sw")
-    ap.add_argument("--tag", default="Efx_RTE-RRTMGP-NN-TPU-181204_rad-irf_r1i1p1f1_gn",
+    ap.add_argument("--tag", default="Efx_RTE-RRTMGP-NN-JAX-181204_rad-irf_r1i1p1f1_gn",
                     help="output filename tag (RFMIP convention)")
     ap.add_argument("--n-gauss-angles", type=int, default=1)
     args = ap.parse_args()

@@ -3,11 +3,11 @@
 Usage: python scripts/trace_summarize.py <trace_dir_or_json.gz> [top_n] [iters]
 
 Reads the newest plugins/profile/*/‌*.trace.json.gz under the given
-directory and keeps events on TPU/device tracks (pid names containing
-"TPU"/"/device:"). Totals are RAW SUMS over every traced iteration; pass
-``iters`` (the loop count of the capture script, e.g. 10 for
-trace_lw/sw/allsky_sw.py) to additionally print per-call totals --
-without it, do NOT compare 'total device time' against per-call anchors.
+directory and keeps events on device tracks (pid names containing
+"/device:" or "GPU"). Totals are RAW SUMS over every traced iteration;
+pass ``iters`` (the loop count of the capture script) to additionally
+print per-call totals -- without it, do NOT compare 'total device time'
+against per-call anchors.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ def main() -> None:
 
     device_pids = {
         pid for pid, name in pid_names.items()
-        if "TPU" in name or "/device:" in name or "Device" in name
+        if "GPU" in name or "/device:" in name or "Device" in name
     }
 
     durs = collections.defaultdict(float)

@@ -148,7 +148,7 @@ def main() -> int:
 
     @jax.jit
     def flux_of(model):
-        tau, pfrac = predict_nn_lw([model], x_full, col_dry, use_pallas=False)
+        tau, pfrac = predict_nn_lw([model], x_full, col_dry)
         lay, lev, sfc, jacs = compute_planck_source_nn(
             pfrac, tlay, tlev, tsfc, spec, table, top_at_1=data.top_at_1)
         sources = SourceFuncLW(lay, lev, sfc, jacs, spec)

@@ -1,5 +1,6 @@
 """Test configuration: force CPU with 8 virtual devices so sharding tests
-run without TPU hardware. Must run before jax is imported anywhere."""
+run without accelerator hardware. Must run before jax is imported
+anywhere."""
 import os
 
 os.environ["JAX_PLATFORMS"] = "cpu"

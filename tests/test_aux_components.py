@@ -249,7 +249,7 @@ class TestFluxFileHygiene:
 
 class TestMixedPrecisionPacking:
     """Mixed-precision h2d packing for the streamed GCM path
-    (drivers/gcm._pack_columns_mixed; VERDICT r3 item 4)."""
+    (drivers/gcm._pack_columns_mixed)."""
 
     def test_roundtrip_precision(self):
         import jax.numpy as jnp
@@ -324,25 +324,16 @@ class TestMixedPrecisionPacking:
             layout)[0], np.float64)
         np.testing.assert_array_equal(deq < t, raw32 < t)
 
-    def test_gcm_lw_flip_orientation_consistent(self, rfmip_file):
+    def test_gcm_lw_flip_orientation_consistent(self):
         """The GCM sweep's [olr, sfc_dn] diagnostics must follow top_at_1:
         a vertically flipped host with the flag flipped is the same
         physical atmosphere, so the diagnostics must match exactly."""
-        import os
+        from rte_rrtmgp_nn_tpu.drivers import seeded_inputs as si
+        from rte_rrtmgp_nn_tpu.drivers.gcm import gcm_host_columns, gcm_sweep_lw
 
-        from rte_rrtmgp_nn_tpu.drivers.gcm import (
-            gcm_sweep_lw,
-            synthesize_gcm_columns,
-        )
-        from rte_rrtmgp_nn_tpu.drivers.rfmip_io import read_rfmip
-        from rte_rrtmgp_nn_tpu.models.network import load_model_netcdf
-
-        path = "/root/reference/neural/data/lw-g128-210809_both_BEST.nc"
-        if not os.path.exists(path):
-            pytest.skip("reference NN models not available")
-        base = read_rfmip(rfmip_file)
-        host = synthesize_gcm_columns(base, 128)
-        m = [load_model_netcdf(path)]
+        base = si.make_gcm_block(seed=0, ncol=128)
+        host = gcm_host_columns(base)
+        m, _ = si.load_models(seed=0)
         a = gcm_sweep_lw(host, m, block_size=64, top_at_1=base.top_at_1)
         flipped = {
             k: (v[:, ::-1].copy() if getattr(v, "ndim", 0) == 2 else v)
@@ -352,66 +343,45 @@ class TestMixedPrecisionPacking:
                          top_at_1=not base.top_at_1)
         np.testing.assert_array_equal(a["diagnostics"], b["diagnostics"])
 
-    def test_gcm_lw_mixed_matches_f32(self, rfmip_file):
+    def test_gcm_lw_mixed_matches_f32(self):
         """Driver-level parity: the mixed-precision streamed sweep must
         reproduce the f32 sweep to well under the NN's ~0.1 W/m2 error."""
-        from rte_rrtmgp_nn_tpu.drivers.gcm import (
-            gcm_sweep_lw,
-            synthesize_gcm_columns,
-        )
-        from rte_rrtmgp_nn_tpu.drivers.rfmip_io import read_rfmip
-        from rte_rrtmgp_nn_tpu.models.network import load_model_netcdf
+        from rte_rrtmgp_nn_tpu.drivers import seeded_inputs as si
+        from rte_rrtmgp_nn_tpu.drivers.gcm import gcm_host_columns, gcm_sweep_lw
 
-        import os
-
-        path = "/root/reference/neural/data/lw-g128-210809_both_BEST.nc"
-        if not os.path.exists(path):
-            pytest.skip("reference NN models not available")
-        base = read_rfmip(rfmip_file)
-        host = synthesize_gcm_columns(base, 256)
-        m = [load_model_netcdf(path)]
+        base = si.make_gcm_block(seed=0, ncol=256)
+        host = gcm_host_columns(base)
+        m, _ = si.load_models(seed=0)
         a = gcm_sweep_lw(host, m, block_size=128, top_at_1=base.top_at_1)
         b = gcm_sweep_lw(host, m, block_size=128, top_at_1=base.top_at_1,
                          precision="mixed")
         d = np.abs(a["diagnostics"] - b["diagnostics"])
-        assert d.max() < 0.02  # W/m2; measured 0.0025 at 3600 cols
+        assert d.max() < 0.02  # W/m2
 
-    def test_gcm_allsky_mixed_matches_f32_grazing(self, rfmip_file):
+    def test_gcm_allsky_mixed_matches_f32_grazing(self):
         """All-sky mixed-precision parity INCLUDING grazing-sun columns:
         day columns with 0 < mu0 <= 0.1 must ride the exact-f32 side sweep
-        (pre-fix, exp(-tau/mu0) amplified the quantized-tau error to 1.5
+        (before it, exp(-tau/mu0) amplified the quantized-tau error to 1.5
         W/m2 there), and night columns must stream SW = 0 exactly."""
-        import os
-
+        from rte_rrtmgp_nn_tpu.drivers import seeded_inputs as si
         from rte_rrtmgp_nn_tpu.drivers.gcm import (
+            gcm_host_columns,
             gcm_sweep_allsky,
-            synthesize_gcm_columns,
         )
-        from rte_rrtmgp_nn_tpu.drivers.rfmip_io import read_rfmip
-        from rte_rrtmgp_nn_tpu.extensions.cloud_optics import load_cloud_optics
-        from rte_rrtmgp_nn_tpu.models.network import load_model_netcdf
 
-        D = "/root/reference/neural/data/"
-        clw_p = ("/root/reference/extensions/cloud_optics/"
-                 "rrtmgp-cloud-optics-coeffs-lw.nc")
-        if not (os.path.exists(D + "lw-g128-210809_both_BEST.nc")
-                and os.path.exists(clw_p)):
-            pytest.skip("reference data not available")
-        base = read_rfmip(rfmip_file)
-        host = synthesize_gcm_columns(base, 192)
+        base = si.make_gcm_block(seed=0, ncol=192)
+        host = gcm_host_columns(base)
         # force a terminator band: grazing day suns in cloudy + clear cols
         host["sza"][10:20] = np.linspace(84.5, 89.9, 10)
-        lw = [load_model_netcdf(D + "lw-g128-210809_both_BEST.nc")]
-        sw = [load_model_netcdf(D + "sw-g112-210809_absorption_BEST.nc"),
-              load_model_netcdf(D + "sw-g112-210809_rayleigh_BEST.nc")]
-        clw = load_cloud_optics(clw_p)
-        csw = load_cloud_optics(clw_p.replace("-lw.nc", "-sw.nc"))
+        lw, sw = si.load_models(seed=0)
+        clw = si.make_cloud_optics(seed=0, kind="lw")
+        csw = si.make_cloud_optics(seed=0, kind="sw")
         a = gcm_sweep_allsky(host, lw, sw, clw, csw, block_size=64,
                              top_at_1=base.top_at_1)
         b = gcm_sweep_allsky(host, lw, sw, clw, csw, block_size=64,
                              top_at_1=base.top_at_1, precision="mixed")
         d = np.abs(a["diagnostics"] - b["diagnostics"])
-        assert d.max() < 0.05  # W/m2, incl. the grazing band (VERDICT r4.5)
+        assert d.max() < 0.05  # W/m2, incl. the grazing band
         night = np.cos(np.deg2rad(host["sza"])) <= 0.0
         assert night.any()
         assert np.all(a["diagnostics"][night, 2] == 0.0)  # SW masked

@@ -54,7 +54,7 @@ def _flux_loss(model, spec, table, atmos, target_up):
     ncol, nlay = play.shape
     col_dry = get_col_dry(gc.get_vmr("h2o", ncol, nlay), plev)
     x = compute_nn_inputs(play, tlay, gc, model)
-    tau, pfrac = predict_nn_lw([model], x, col_dry, use_pallas=False)
+    tau, pfrac = predict_nn_lw([model], x, col_dry)
     lay, lev, sfc, jacs = compute_planck_source_nn(pfrac, tlay, tlev, tsfc, spec, table)
     sources = SourceFuncLW(lay, lev, sfc, jacs, spec)
     emis = jnp.full((ncol, spec.nband), 0.98, play.dtype)
@@ -118,7 +118,7 @@ class TestGradients:
         ncol, nlay = play.shape
         col_dry = get_col_dry(gc2.get_vmr("h2o", ncol, nlay), plev)
         x2 = compute_nn_inputs(play, tlay, gc2, model)
-        tau, pfrac = predict_nn_lw([model], x2, col_dry, use_pallas=False)
+        tau, pfrac = predict_nn_lw([model], x2, col_dry)
         lay, lev, sfc, jacs = compute_planck_source_nn(pfrac, tlay, tlev, tsfc, spec, table)
         sources = SourceFuncLW(lay, lev, sfc, jacs, spec)
         emis = jnp.full((ncol, spec.nband), 0.98, play.dtype)

@@ -8,9 +8,6 @@ import pytest
 from rte_rrtmgp_nn_tpu.utils.easy_nc import EasyNC, write_dict
 from rte_rrtmgp_nn_tpu.utils.ncio import NCFile
 
-REF_MODEL = "/root/reference/neural/data/lw-g128-210809_both_BEST.nc"
-
-
 @pytest.fixture
 def rng():
     return np.random.default_rng(7)
@@ -28,7 +25,7 @@ def _roundtrip_file(tmp_path, rng):
         f.put("levels", np.array([1.0, 2.0, 3.0]), dims=("lay",), units="Pa")
         f.put("counts", np.arange(5, dtype=np.int64), dims=("col",))
         f.put_attribute("temp", "comment", "made up")
-        f.put_global_attributes(title="roundtrip", institution="tpu-framework",
+        f.put_global_attributes(title="roundtrip", institution="rte-framework",
                                 conventions="CF-1.7")
     return path
 
@@ -133,8 +130,17 @@ class TestWriteRead:
 
 
 class TestHDF5Read:
-    def test_global_attribute_from_reference_model(self):
-        with EasyNC(REF_MODEL) as f:
+    def test_global_attribute_from_reference_model(self, tmp_path):
+        """An HDF5 (netCDF-4) model file laid out like the reference's
+        neural/data models: global attributes + nn_weights_1."""
+        h5py = pytest.importorskip("h5py")
+        path = str(tmp_path / "lw-g128-both.nc")
+        with h5py.File(path, "w") as h:
+            h.attrs["emulator_target"] = "rrtmgp-data-lw-g128-210809.nc"
+            h.attrs["input_scaling_info"] = "min-max"
+            h.create_dataset("nn_weights_1",
+                             data=np.zeros((128, 18), np.float32))
+        with EasyNC(path) as f:
             assert f.get_global_attribute("emulator_target") == (
                 "rrtmgp-data-lw-g128-210809.nc")
             assert f.global_attribute_exists("input_scaling_info")

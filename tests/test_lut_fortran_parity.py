@@ -1,6 +1,6 @@
 """Independent cross-validation of the LUT kernels.
 
-The vectorized TPU formulation (dense per-g-point gathers) is checked
+The vectorized JAX formulation (dense per-g-point gathers) is checked
 against a direct numpy transcription of the Fortran kernel semantics
 (1-based indices, per-(col,lay,flavor) loops) written from
 ``mo_gas_optics_kernels.F90:47-144`` (interpolation), ``:300-356``

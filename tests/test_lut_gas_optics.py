@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rte_rrtmgp_nn_tpu.gas_concs import GasConcs
+from rte_rrtmgp_nn_tpu.drivers.seeded_inputs import make_atmosphere
 from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist
 from rte_rrtmgp_nn_tpu.gasoptics.lut_gas_optics import (
     compute_optimal_angles,
@@ -41,28 +41,6 @@ def sw_kdist_file(tmp_path_factory):
     p = str(tmp_path_factory.mktemp("kdist") / "synthetic-sw.nc")
     generate_kdist_nc(p, kind="sw", gpts_per_band=4, nband=14)
     return p
-
-
-def make_atmosphere(ncol=4, nlay=20, t_iso=None, rng=None, dtype=jnp.float64):
-    rng = rng or np.random.default_rng(1)
-    plev = np.exp(np.linspace(np.log(40.0), np.log(101325.0), nlay + 1))
-    plev = np.broadcast_to(plev, (ncol, nlay + 1)).copy()
-    play = 0.5 * (plev[:, 1:] + plev[:, :-1])
-    if t_iso is not None:
-        tlay = np.full((ncol, nlay), t_iso)
-        tlev = np.full((ncol, nlay + 1), t_iso)
-        tsfc = np.full((ncol,), t_iso)
-    else:
-        prof = 220 + 70 * (play / play.max()) ** 0.3
-        tlay = prof + rng.uniform(-5, 5, (ncol, nlay))
-        tlev = np.concatenate([tlay[:, :1], 0.5 * (tlay[:, 1:] + tlay[:, :-1]), tlay[:, -1:]], 1)
-        tsfc = tlev[:, -1] + rng.uniform(0, 5, ncol)
-    gc = GasConcs.create(
-        {"h2o": 3e-3 * (play / play.max()) ** 1.5 + 1e-6, "co2": 4e-4, "o3": 5e-7,
-         "n2o": 3.2e-7, "ch4": 1.8e-6}
-    )
-    to = lambda x: jnp.asarray(x, dtype)
-    return to(play), to(plev), to(tlay), to(tlev), to(tsfc), gc
 
 
 class TestLoader:
@@ -285,15 +263,14 @@ class TestSolarSourceWiring:
             resolve_solar_source,
             rfmip_clear_sky_sw,
         )
-        from rte_rrtmgp_nn_tpu.drivers.rfmip_io import read_rfmip
-        from rte_rrtmgp_nn_tpu.gasoptics.planck import sw_spectral_g112
-        from rte_rrtmgp_nn_tpu.models.network import load_model_netcdf
-
-        data = read_rfmip(
-            "/root/reference/examples/rfmip-clear-sky/"
-            "multiple_input4MIPs_radiation_RFMIP_UColorado-RFMIP-1-2_none.nc"
+        from rte_rrtmgp_nn_tpu.drivers.seeded_inputs import (
+            load_models,
+            make_rfmip,
         )
-        idx = np.arange(0, data.ncol, 225)  # 8 columns
+        from rte_rrtmgp_nn_tpu.gasoptics.planck import sw_spectral_g112
+
+        data = make_rfmip(seed=0, nsites=10)
+        idx = np.arange(0, data.ncol, 23)[:8]  # 8 columns
         data = dataclasses.replace(
             data,
             play=data.play[idx], plev=data.plev[idx], tlay=data.tlay[idx],
@@ -306,12 +283,7 @@ class TestSolarSourceWiring:
             }),
             nexp=1, nsites=len(idx),
         )
-        models = [
-            load_model_netcdf(
-                "/root/reference/neural/data/sw-g112-210809_absorption_BEST.nc"),
-            load_model_netcdf(
-                "/root/reference/neural/data/sw-g112-210809_rayleigh_BEST.nc"),
-        ]
+        _, models = load_models(seed=0)
         kd = load_kdist(sw_kdist_file, GASES)
         spec = sw_spectral_g112()
         via_kdist = rfmip_clear_sky_sw(data, models, kdist=kd)

@@ -16,14 +16,36 @@ from rte_rrtmgp_nn_tpu.utils.native import (
 
 pytestmark = pytest.mark.skipif(not available(), reason="native lib not built")
 
-CLASSIC_NC = "/root/reference/extensions/cloud_optics/rrtmgp-cloud-optics-coeffs-lw.nc"
+
+
+@pytest.fixture
+def cloud_lut_nc(tmp_path):
+    """The seeded LW cloud-optics LUT written as a netCDF-3 classic file
+    with the reference coefficient file's variable names and shapes."""
+    from rte_rrtmgp_nn_tpu.drivers.seeded_inputs import make_cloud_optics
+
+    co = make_cloud_optics(seed=0, kind="lw")
+    f64 = lambda a: np.asarray(a, np.float64)
+    path = str(tmp_path / "cloud-optics-coeffs-lw.nc")
+    dims = {"nband": co.nband, "nsize_liq": co.lut_extliq.shape[1],
+            "nsize_ice": co.lut_extice.shape[2],
+            "nrghice": co.lut_extice.shape[0], "pair": 2}
+    variables = {
+        "bnd_limits_wavenumber": (("nband", "pair"),
+                                  co.spectral.band_lims_wvn_array),
+        "radliq_lwr": ((), np.float64(co.radliq_lwr)),
+        "lut_extliq": (("nband", "nsize_liq"), f64(co.lut_extliq)),
+        "lut_extice": (("nrghice", "nband", "nsize_ice"), f64(co.lut_extice)),
+    }
+    ncio.write_nc(path, dims, variables)
+    return path
 
 
 class TestNativeNC:
-    def test_reader_matches_scipy(self):
+    def test_reader_matches_scipy(self, cloud_lut_nc):
         from rte_rrtmgp_nn_tpu.utils.native import NativeNCFile
 
-        with NativeNCFile(CLASSIC_NC) as nf, ncio.NCFile(CLASSIC_NC) as pf:
+        with NativeNCFile(cloud_lut_nc) as nf, ncio.NCFile(cloud_lut_nc) as pf:
             for var in ("lut_extliq", "lut_extice", "radliq_lwr", "bnd_limits_wavenumber"):
                 a = nf.read(var)
                 b = np.asarray(pf.read(var), np.float64)

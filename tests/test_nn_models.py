@@ -80,9 +80,14 @@ def test_nn_scenario_index_missing_gas(rng):
     from rte_rrtmgp_nn_tpu.gasoptics.nn_gas_optics import compute_nn_inputs
     from rte_rrtmgp_nn_tpu.models.network import load_model_netcdf
 
-    m = load_model_netcdf(
-        "/root/reference/neural/data/lw-g128-210809_both_BEST.nc"
+    from rte_rrtmgp_nn_tpu.drivers.seeded_inputs import (
+        ARTIFACTS_DIR,
+        LW_MODEL_FILE,
     )
+
+    # the repository's g-128 model reads the same 18 inputs as the
+    # reference's lw-g128-210809 model
+    m = load_model_netcdf(os.path.join(ARTIFACTS_DIR, LW_MODEL_FILE))
     ncol, nlay = 4, 6
     play = jnp.asarray(rng.uniform(1e3, 1e5, (ncol, nlay)), jnp.float32)
     tlay = jnp.asarray(rng.uniform(200.0, 300.0, (ncol, nlay)), jnp.float32)
